@@ -1,0 +1,114 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
+``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` at
+first use, then loaded with :mod:`ctypes`.  The hash covers the source
+and the flags, so an edited source builds anew and an unchanged one is
+reused.  Nothing here runs at import time.
+
+Every wrapper that launches a kernel adds one to :data:`LAUNCHES` under
+the kernel's name, and nowhere else, so a run can show which kernels its
+path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from collections import Counter
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+# kernel name -> launches since the last reset (plain integers).
+LAUNCHES: Counter = Counter()
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else the toolkit's default
+    install location.  Raises if there is none."""
+    found = shutil.which("nvcc") or shutil.which("nvcc", path="/usr/local/cuda/bin")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed"
+        )
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _nvcc_cmd(name: str, out: Path, extra: List[str]) -> List[str]:
+    return [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, Path]:
+    """Compile every named source that is not built yet, all ``nvcc``
+    processes started together; returns name -> shared library path.
+    ``verbose`` adds ``-Xptxas -v`` (a report only; the code is the
+    same) and prints the compiler's output."""
+    extra = ["-Xptxas", "-v"] if verbose else []
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: _lib_path(n) for n in names}
+    procs = {}
+    for n, p in paths.items():
+        if p.exists():
+            continue
+        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (
+            subprocess.Popen(
+                _nvcc_cmd(n, tmp, extra),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ),
+            tmp,
+        )
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if verbose and log:
+            print(f"[nvcc {n}]\n{log}", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            _LIBS[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` returned by a launcher."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,155 @@
+"""GF(256) arithmetic and systematic Reed-Solomon erasure coding.
+
+Reference: the ``reed-solomon-erasure`` crate used by upstream
+``src/broadcast/broadcast.rs`` (SURVEY.md §2 #4): N shards = K data +
+(N-K) parity over GF(2^8), any K shards reconstruct.
+
+Field: GF(2^8) with the primitive polynomial x^8+x^4+x^3+x^2+1 (0x11d),
+generator 2.  The encoding matrix is a Vandermonde matrix normalized so
+its top K x K block is the identity (systematic: data shards pass
+through unchanged) — the same construction the reference crate uses.
+
+Implementation: numpy log/exp-table arithmetic.  The device path
+(:mod:`hbbft_tpu_torch.ops.device.gf256`) expresses the same encode/decode
+as GF(2) bit-matrix products.
+
+Copy of the GF(256) half of ``hbbft_tpu/ops/gf256.py`` without its native
+C++ fast path; the GF(2^16) codec is not part of this package yet.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+_POLY = 0x11D
+
+EXP = np.zeros(512, dtype=np.uint8)
+LOG = np.zeros(256, dtype=np.int32)
+_x = 1
+for _i in range(255):
+    EXP[_i] = _x
+    LOG[_x] = _i
+    _x <<= 1
+    if _x & 0x100:
+        _x ^= _POLY
+EXP[255:510] = EXP[:255]  # wraparound so exp[log a + log b] needs no mod
+
+
+def gf_mul(a: int, b: int) -> int:
+    if a == 0 or b == 0:
+        return 0
+    return int(EXP[LOG[a] + LOG[b]])
+
+
+def gf_inv(a: int) -> int:
+    if a == 0:
+        raise ZeroDivisionError("GF(256) inverse of 0")
+    return int(EXP[255 - LOG[a]])
+
+
+def gf_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Matrix product over GF(256); uint8 arrays (m,k) @ (k,n) -> (m,n)."""
+    assert a.shape[1] == b.shape[0]
+    out = np.zeros((a.shape[0], b.shape[1]), dtype=np.uint8)
+    for i in range(a.shape[1]):  # rank-1 accumulation, vectorized over cells
+        col = a[:, i]
+        row = b[i, :]
+        nz = (col[:, None].astype(np.int32) != 0) & (row[None, :].astype(np.int32) != 0)
+        prod = EXP[(LOG[col][:, None] + LOG[row][None, :])]
+        out ^= np.where(nz, prod, 0).astype(np.uint8)
+    return out
+
+
+def gf_mat_inv(m: np.ndarray) -> np.ndarray:
+    """Gauss-Jordan inverse over GF(256)."""
+    n = m.shape[0]
+    assert m.shape == (n, n)
+    a = m.astype(np.uint8).copy()
+    inv = np.eye(n, dtype=np.uint8)
+    for col in range(n):
+        pivot = None
+        for r in range(col, n):
+            if a[r, col] != 0:
+                pivot = r
+                break
+        if pivot is None:
+            raise ValueError("singular matrix over GF(256)")
+        if pivot != col:
+            a[[col, pivot]] = a[[pivot, col]]
+            inv[[col, pivot]] = inv[[pivot, col]]
+        pinv = gf_inv(int(a[col, col]))
+        a[col] = _row_scale(a[col], pinv)
+        inv[col] = _row_scale(inv[col], pinv)
+        for r in range(n):
+            if r != col and a[r, col] != 0:
+                factor = int(a[r, col])
+                a[r] ^= _row_scale(a[col], factor)
+                inv[r] ^= _row_scale(inv[col], factor)
+    return inv
+
+
+def _row_scale(row: np.ndarray, s: int) -> np.ndarray:
+    if s == 0:
+        return np.zeros_like(row)
+    nz = row != 0
+    out = np.zeros_like(row)
+    out[nz] = EXP[LOG[row[nz]] + LOG[s]]
+    return out
+
+
+@lru_cache(maxsize=256)
+def encoding_matrix(k: int, n: int) -> "np.ndarray":
+    """Systematic n x k encoding matrix (top k rows = identity).
+
+    Vandermonde rows [a_i^0 .. a_i^(k-1)] with distinct points a_i =
+    exp(i) (distinct for n <= 255), right-multiplied by the inverse of
+    the top k x k block; any k rows stay independent under that
+    normalization.
+    """
+    assert 0 < k <= n <= 255
+    vand = np.zeros((n, k), dtype=np.uint8)
+    for i in range(n):
+        for j in range(k):
+            vand[i, j] = EXP[(i * j) % 255]
+    top_inv = gf_mat_inv(vand[:k])
+    return gf_matmul(vand, top_inv)
+
+
+class ReedSolomon:
+    """Systematic RS(k-of-n) erasure codec over byte shards."""
+
+    shard_align = 1  # GF(256) symbols are single bytes
+
+    def __init__(self, k: int, n: int) -> None:
+        assert 0 < k <= n <= 255, "GF(256) Vandermonde supports at most 255 shards"
+        self.k = k
+        self.n = n
+        self.matrix = encoding_matrix(k, n)
+
+    def encode(self, data_shards: Sequence[bytes]) -> List[bytes]:
+        """k equal-length data shards -> n shards (data + parity)."""
+        assert len(data_shards) == self.k
+        size = len(data_shards[0])
+        assert all(len(s) == size for s in data_shards)
+        data = np.frombuffer(b"".join(data_shards), dtype=np.uint8).reshape(
+            self.k, size
+        )
+        parity = gf_matmul(self.matrix[self.k :], data)
+        return [bytes(s) for s in data] + [bytes(p) for p in parity]
+
+    def reconstruct(self, shards: Dict[int, bytes]) -> List[bytes]:
+        """Any k shards (by index) -> the k data shards."""
+        if len(shards) < self.k:
+            raise ValueError(f"need {self.k} shards, got {len(shards)}")
+        idxs = sorted(shards)[: self.k]
+        size = len(shards[idxs[0]])
+        sub = self.matrix[idxs]
+        dec = gf_mat_inv(sub)
+        have = np.frombuffer(
+            b"".join(shards[i] for i in idxs), dtype=np.uint8
+        ).reshape(self.k, size)
+        data = gf_matmul(dec, have)
+        return [bytes(r) for r in data]

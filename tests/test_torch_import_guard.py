@@ -1,0 +1,97 @@
+"""The port stands alone: importing ``hbbft_tpu_torch`` loads neither
+``jax`` nor any module of the JAX package, no port source imports the JAX
+package, and without a card every entry point refuses to run unless the
+caller asks for the CPU.  Checks run in a fresh interpreter so this test
+process's own imports do not leak in.  Every check is exact."""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "hbbft_tpu_torch")
+
+
+def _port_modules():
+    mods = []
+    for dirpath, dirnames, filenames in os.walk(PKG):
+        dirnames[:] = [d for d in dirnames if d not in ("__pycache__", "build")]
+        for fn in sorted(filenames):
+            if fn.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, fn), REPO)[:-3]
+                mod = rel.replace(os.sep, ".")
+                mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    mods = _port_modules()
+    assert "hbbft_tpu_torch.crypto.device.backend" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'hbbft_tpu' or m.startswith('hbbft_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+
+
+def test_no_source_imports_the_reference_package():
+    offenders = []
+    for dirpath, _dirnames, filenames in os.walk(PKG):
+        for fn in filenames:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            tree = ast.parse(open(path, encoding="utf-8").read(), path)
+            for node in ast.walk(tree):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                for name in names:
+                    root = name.split(".")[0]
+                    if root in ("hbbft_tpu", "jax", "jaxlib"):
+                        offenders.append((path, node.lineno, name))
+    assert offenders == []
+
+
+def test_entry_points_refuse_without_a_card():
+    code = (
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from hbbft_tpu_torch.crypto.device.backend import TorchBackend\n"
+        "from hbbft_tpu_torch.ops.device.dataplane import encode_and_prove\n"
+        "from hbbft_tpu_torch.ops.device.keccak import sha3_256_batch\n"
+        "from hbbft_tpu_torch.ops.device.gf256 import ReedSolomonTorch\n"
+        "import numpy as np\n"
+        "calls = [lambda: TorchBackend(), lambda: encode_and_prove([b'x'], 1, 3),\n"
+        "         lambda: sha3_256_batch(np.zeros((1, 3), np.uint8)),\n"
+        "         lambda: ReedSolomonTorch(2, 3)]\n"
+        "n = 0\n"
+        "for c in calls:\n"
+        "    try:\n"
+        "        c()\n"
+        "    except RuntimeError:\n"
+        "        n += 1\n"
+        "TorchBackend(device='cpu')\n"
+        "encode_and_prove([b'x'], 1, 3, device='cpu')\n"
+        "print('REFUSED', n)\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "REFUSED 4" in res.stdout, res.stdout
