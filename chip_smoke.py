@@ -11,15 +11,21 @@ Phases (any failure raises and the script exits nonzero):
    started together);
 1. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with its time, the plain version's time and the
-   least time the card could take (its bound);
+   least time the card could take (its bound): the Keccak kernel (K1) at
+   the data plane's leaf shape; the Fq product (K4) on 2,048 rows with
+   edge limbs; the scan-stage kernels (K2) on one firehose chunk (2,048
+   G1 + 2,048 G2 rows) and on the mixed-512 batch in one subset, whose
+   forged non-subgroup point must clear its verdict;
 2. the reliable-broadcast data plane at N = 104 validators, 64,000-byte
    proposals (one HoneyBadger epoch): every proof checked, sampled proofs
    and parity held against the host Merkle tree and Reed-Solomon code, and
    the kernels' launch counts over that run;
 3. the share-verification flush: the 10,240-request sig-share firehose
-   (all valid, 5 chunks) and a 512-request mixed batch with two bad
-   shares and one forged non-subgroup point, whose verdicts must equal
-   the host ``BatchedBackend``/``EagerBackend``.
+   (all valid, 5 chunks) split into host prep, scan and pair, the
+   device's busy share over one warm flush, and the launches of K2 and
+   K4 over a flush; then a 512-request mixed batch with two bad shares
+   and one forged non-subgroup point, whose verdicts must equal the host
+   ``BatchedBackend``/``EagerBackend``.
 
 The last three lines are one JSON object with every kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.  With no CUDA card, or
@@ -60,6 +66,21 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 KECCAK_INT32_OPS_PER_ROUND = 20 + 10 + 50 + 48 + 50
 KECCAK_IOTA_HALVES = 24 + 13
 KECCAK_INT32_OPS_PER_PERM = 24 * KECCAK_INT32_OPS_PER_ROUND + KECCAK_IOTA_HALVES + 2 * 17
+
+# The Fq kernels (K2, K4) are bound by 32-bit integer multiply-adds
+# (IMAD, IMAD.HI, IMAD.WIDE), a different unit from the ALU rate above:
+# 64 per SM per clock (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 132 SMs x 1.98 GHz.  The fewest a
+# 12-word Montgomery product needs, schoolbook CIOS: 12 x 12 lo/hi pairs
+# for a*b, 12 quotient words, 12 x 12 lo/hi pairs for m*P.  Additions run
+# on the ALU pipe beside them and are not counted.
+IMAD_PER_S = 132 * 64 * 1.98e9
+FQ_MUL_IMAD = 12 * 12 * 2 + 12 + 12 * 12 * 2  # 588
+# Fq products per point operation (crypto/device/curve.py formulas): an
+# Fq2 square takes 2 Fq products, an Fq2 product 3 (Karatsuba).
+G1_DBL, G1_ADD, G1_EQ = 7, 16, 8  # 5 sqr + 2 mul; 4 sqr + 12 mul; 2 sqr + 6 mul
+G2_DBL, G2_ADD, G2_EQ = 5 * 2 + 2 * 3, 4 * 2 + 12 * 3, 2 * 2 + 6 * 3
+PSI = 2 * 3  # two Fq2 products
 
 
 def log(msg: str) -> None:
@@ -168,6 +189,189 @@ def phase_kernels(card: str, leaf_shape) -> list:
     }]
 
 
+def bound(n_bytes: float, n_imad: float) -> tuple:
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_imad / IMAD_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def canonical(limbs: torch.Tensor) -> list:
+    from hbbft_tpu_torch.crypto.device import fq
+
+    return [fq.from_limbs_int(row) % fq.P for row in limbs.reshape(-1, fq.NL).cpu()]
+
+
+def phase_field(card: str) -> dict:
+    """K4 against the plain product on 2,048 rows, edge limbs included."""
+    from hbbft_tpu_torch.crypto.device import fq
+
+    rng = np.random.default_rng(5)
+    vals = [int.from_bytes(rng.bytes(49), "little") % (1 << 386) for _ in range(2048)]
+    vals[:6] = [0, 1, fq.P - 1, fq.P, 2 * fq.P, (1 << 386) - 1]
+    a = torch.as_tensor(fq.ints_to_limbs_batch(vals), device="cuda")
+    a[6, :35:3] = 4096  # limbs at the top of the range, value < 2^386
+    a[6, 35] = 0
+    a[7, :35] = 4095
+    a[7, 35] = 0
+    b = a.flip(0).contiguous()
+    got = fq.mont_mul_kernel(a, b)
+    want = fq.mont_mul_plain(a, b)
+    torch.cuda.synchronize()
+    if int(got.min()) < 0 or int(got.max()) >= 2048:
+        raise AssertionError("fq_mont_mul: output limbs are not strict")
+    bad = sum(x != y for x, y in zip(canonical(got), canonical(want)))
+    if bad:
+        raise AssertionError(f"fq_mont_mul != plain mont_mul on {bad} of 2048 rows")
+    ms = cuda_time_ms(lambda: fq.mont_mul_kernel(a, b), 50)
+    plain_ms = cuda_time_ms(lambda: fq.mont_mul_plain(a, b), 10)
+    n = a.shape[0]
+    bound_ms, bound_by = bound(n * 3 * fq.NL * 8, n * 2 * FQ_MUL_IMAD)
+    log(f"fq_mont_mul 2048 rows (edge limbs 4096, values up to 2^386 - 1, 0, P - 1): "
+        f"== plain canonically; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by})  [{card}]")
+    return {
+        "name": fq.KERNEL, "route": "cuda", "source": "hbbft_tpu_torch/csrc/fq.cu",
+        "replaces": "hbbft_tpu/crypto/tpu/fq.py:208", "launches": None, "max_abs_err": bad,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def _same_points(p, q, group: int) -> bool:
+    from hbbft_tpu_torch.crypto.bls import curve as oc
+    from hbbft_tpu_torch.crypto.device import curve as dc
+
+    frm, ops = (dc.g1_from_dev, oc.FQ_OPS) if group == 1 else (dc.g2_from_dev, oc.FQ2_OPS)
+    host = tuple(c.cpu() for c in p), tuple(c.cpu() for c in q)
+    return all(oc.jac_eq(ops, frm(host[0], i), frm(host[1], i)) for i in range(p[3].shape[0]))
+
+
+def _scan_work(inp) -> dict:
+    """Fq products and bytes each K2 kernel needs for these inputs:
+    doublings always run; an addition costs nothing when an operand is
+    the identity (add_unsafe routes on the flag), so the first set bit of
+    a scan and identity rows add nothing."""
+    w1 = inp.g1_words.cpu().numpy().view(np.uint32).astype(object)
+    w2 = inp.g2_words.cpu().numpy().view(np.uint32).astype(object)
+    inf1 = inp.g1_pts[3].cpu().numpy()
+    inf2 = inp.g2_pts[3].cpu().numpy()
+    xabs = 0xD201000000010000
+    prod1 = 0
+    for words, inf in zip(w1, inf1):
+        c = sum(int(v) << (32 * i) for i, v in enumerate(words))
+        adds = 0 if inf else max(bin(c).count("1") - 1, 0) + 16
+        prod1 += 3 + 127 * G1_DBL + adds * G1_ADD + 1 + G1_EQ
+    prod2 = 0
+    for words, inf in zip(w2, inf2):
+        sq = sum(int(v) << (32 * i) for i, v in enumerate(words))
+        s, q = sq & ((1 << 64) - 1), sq >> 64
+        steps = sum(1 for k in range(65) if (s >> k) & 1 or (q >> k) & 1)
+        adds = 0 if inf else 1 + max(steps - 1, 0) + 5
+        prod2 += 6 + PSI + (65 + 63) * G2_DBL + adds * G2_ADD + PSI + G2_EQ
+    n1, n2 = len(w1), len(w2)
+    p1, s1 = inp.g1_pieces.shape[0] - 1, inp.g1_segments.shape[0] - 1
+    p2, s2 = inp.g2_pieces.shape[0] - 1, inp.g2_segments.shape[0] - 1
+    rec1, rec2 = 37 * 4, 73 * 4
+    return {
+        "scan_g1_rows": (n1 * (3 * 36 * 8 + 8 + 16 + 4 + 4) + n1 * rec1, prod1),
+        "scan_g2_rows": (n2 * (3 * 72 * 8 + 8 + 20 + 4 + 4) + n2 * rec2, prod2),
+        "scan_g1_sums": ((n1 + 2 * p1) * rec1 + s1 * (3 * 36 * 8 + 8),
+                         (n1 - s1) * G1_ADD + 3 * s1),
+        "scan_g2_sums": ((n2 + 2 * p2) * rec2 + s2 * (3 * 72 * 8 + 8),
+                         (n2 - s2) * G2_ADD + 6 * s2),
+    }
+
+
+def _check_scan(be, subsets, what: str, want_ok: list, card: str) -> None:
+    """K2 against the plain scan_stage on the same subsets, on the card."""
+    from hbbft_tpu_torch.crypto.device import backend as dbackend
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+
+    inp, _ = be._scan_prep(subsets)
+    args, _ = be._scan_prep(subsets, kernel=False)
+    got = dscan.scan_stage_kernel(inp)
+    want = dbackend.scan_stage(*args)
+    torch.cuda.synchronize()
+    if got[0].tolist() != want[0].tolist() or got[0].tolist() != want_ok:
+        raise AssertionError(f"scan kernels at {what}: sub_ok {got[0].tolist()} != plain "
+                             f"{want[0].tolist()} (expected {want_ok})")
+    bad = sum(not _same_points(tuple(c[i:i + 1] for c in got[k]),
+                               tuple(c[i:i + 1] for c in want[k]), k)
+              for k in (1, 2) for i in range(got[k][3].shape[0]))
+    if bad:
+        raise AssertionError(f"scan kernels at {what}: {bad} pairs != plain scan_stage")
+    log(f"scan kernels at {what} ({inp.g1_words.shape[0]} G1 + {inp.g2_words.shape[0]} G2 rows, "
+        f"{got[1][3].shape[0]} pairs): sub_ok {got[0].tolist()} and pairs == plain scan_stage  "
+        f"[{card}]")
+    return bad
+
+
+def phase_scan(card: str, firehose: list, mixed: list) -> list:
+    """K2: each kernel timed at one firehose chunk against its plain
+    counterpart; the whole stage held against the plain scan_stage at the
+    chunk and at the mixed-512 batch in one subset."""
+    from hbbft_tpu_torch.crypto.backend import request_well_formed
+    from hbbft_tpu_torch.crypto.device import backend as dbackend
+    from hbbft_tpu_torch.crypto.device import curve as dc
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+    from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+
+    be = TorchBackend(device="cuda")
+    chunk = [firehose[: be.chunk]]
+    err = _check_scan(be, chunk, "one firehose chunk", [True], card)
+    wf = [r for r in mixed if request_well_formed(be.suite, r, subgroup=False)]
+    err += _check_scan(be, [wf], "the mixed-512 batch (forged point in it)", [False], card)
+
+    inp, _ = be._scan_prep(chunk)
+    args, _ = be._scan_prep(chunk, kernel=False)
+    g1_pts, g1_bits, _, seg, _, g2_pts, bits_s, bits_q, _, g2_sub, _, _ = args
+    sub_ok = torch.ones((1,), dtype=torch.int32, device="cuda")
+    scaled1 = dscan.rows(1, inp, sub_ok)
+    scaled2 = dscan.rows(2, inp, sub_ok)
+    timed = {
+        dscan.G1_ROWS: (lambda: dscan.rows(1, inp, sub_ok), 5),
+        dscan.G2_ROWS: (lambda: dscan.rows(2, inp, sub_ok), 5),
+        dscan.G1_SUMS: (lambda: dscan.sums(1, inp, scaled1), 20),
+        dscan.G2_SUMS: (lambda: dscan.sums(2, inp, scaled2), 20),
+    }
+    with torch.inference_mode():
+        p_scaled1, _ = dc.scalar_mul_rlc_g1(g1_pts, g1_bits)
+        p_scaled2, _ = dc.scalar_mul_rlc_g2(g2_pts, bits_s, bits_q)
+
+        def plain_rows1():
+            _, chain = dc.scalar_mul_rlc_g1(g1_pts, g1_bits)
+            return dc.endo_subgroup_eq(dc.G1_OPS, g1_pts, chain)
+
+        def plain_rows2():
+            _, chain = dc.scalar_mul_rlc_g2(g2_pts, bits_s, bits_q)
+            return dc.endo_subgroup_eq(dc.G2_OPS, g2_pts, chain)
+
+        plain = {
+            dscan.G1_ROWS: plain_rows1,
+            dscan.G2_ROWS: plain_rows2,
+            dscan.G1_SUMS: lambda: dbackend._masked_sums(dc.G1_OPS, p_scaled1, seg),
+            dscan.G2_SUMS: lambda: dbackend._masked_sums(dc.G2_OPS, p_scaled2, g2_sub),
+        }
+        work = _scan_work(inp)
+        out = []
+        for name in dscan.KERNELS:
+            fn, repeats = timed[name]
+            ms = cuda_time_ms(fn, repeats)
+            plain_ms = cuda_time_ms(plain[name], 1)
+            n_bytes, products = work[name]
+            bound_ms, bound_by = bound(n_bytes, products * FQ_MUL_IMAD)
+            log(f"{name} at one firehose chunk: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {products} Fq products, {n_bytes} bytes)  [{card}]")
+            out.append({
+                "name": name, "route": "cuda", "source": "hbbft_tpu_torch/csrc/scan.cu",
+                "replaces": "hbbft_tpu/crypto/tpu/backend.py:79", "launches": None,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+            })
+    log(sass_summary("scan", "scan kernels"))
+    return out
+
+
 def phase_dataplane(card: str) -> dict:
     from hbbft_tpu_torch import build
     from hbbft_tpu_torch.ops.device.dataplane import encode_and_prove
@@ -269,20 +473,16 @@ def _mixed_512(keys, Request, suite, G2Elem, rogue_pt):
     return reqs, sorted([bad_sig, forged, bad_dec])
 
 
-def phase_flush(card: str) -> None:
-    from hbbft_tpu_torch.crypto import keys
-    from hbbft_tpu_torch.crypto.backend import (
-        BatchedBackend,
-        EagerBackend,
-        VerifyRequest,
-    )
-    from hbbft_tpu_torch.crypto.bls import curve as oc
-    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
+def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
+    """The flush end to end on the card; returns the kernels' launches
+    over one warm firehose flush (the counts set to 0 just before it)."""
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.backend import BatchedBackend, EagerBackend
+    from hbbft_tpu_torch.crypto.device import fq
+    from hbbft_tpu_torch.crypto.device import scan as dscan
     from hbbft_tpu_torch.crypto.device.backend import TorchBackend
 
-    from hbbft_tpu_torch.crypto.device import fq
-
-    # The field layer under both stages (K4): one product and one
+    # The field layer under both stages: one product (K4) and one plain
     # difference at 8 rows and at a chunk's 2048 rows, host clock around
     # synchronised calls.  Equal times at both sizes mean launch-bound.
     rng = np.random.default_rng(5)
@@ -300,64 +500,68 @@ def phase_flush(card: str) -> None:
                 torch.cuda.synchronize()
                 log(f"fq.{name} at {rows} rows: {(time.perf_counter() - t0) / 50 * 1e6:.1f} us "
                     f"per call  [{card}]")
-        # Device busy share over 20 products at 2048 rows, from a
-        # torch.profiler trace (kernel time / wall time under the profiler).
-        from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                fq.mont_mul(a, b)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-        share = f"{100 * busy_us / wall_us:.1f}%" if busy_us > 0 else "not measured"
-        log(f"fq.mont_mul x20 at 2048 rows under torch.profiler: device busy {busy_us:.0f} us "
-            f"of {wall_us:.0f} us wall = {share}  [{card}]")
-
-    suite = BLSSuite()
-    t0 = time.perf_counter()
-    reqs = _firehose(keys, VerifyRequest, suite)
-    log(f"firehose: built {len(reqs)} requests on the host in {time.perf_counter() - t0:.1f} s")
     be = TorchBackend(suite, device="cuda")
 
-    # First flush: each stage timed with a sync around it.
-    stage = {"scan": 0.0, "pair": 0.0}
+    # First flush: host prep, scan and pair each timed with a sync around
+    # it (the scan's own time is _scan's less the prep inside it).
+    stage = {"prep": 0.0, "scan": 0.0, "pair": 0.0}
 
     def timed(name, fn):
-        def run(*args):
+        def run(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args)
+            out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             stage[name] += time.perf_counter() - t0
             return out
         return run
 
+    be._scan_prep = timed("prep", be._scan_prep)
     be._scan = timed("scan", be._scan)
     be._check_parts = timed("pair", be._check_parts)
     t0 = time.perf_counter()
     first = be.verify_batch(reqs)
     first_s = time.perf_counter() - t0
-    del be._scan, be._check_parts
+    del be._scan_prep, be._scan, be._check_parts
     if not all(first):
         raise AssertionError("firehose: a valid share was rejected")
+    scan_s = stage["scan"] - stage["prep"]
 
-    # Second flush: end to end, no extra syncs.
+    # Second flush: end to end, no extra syncs, launches counted.
+    build.reset_launches()
     t0 = time.perf_counter()
     warm = be.verify_batch(reqs)
     warm_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
     if not all(warm):
         raise AssertionError("firehose (warm): a valid share was rejected")
+    missing = [k for k in (fq.KERNEL, *dscan.KERNELS) if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"the flush launched no {missing}: launches {launches}")
     n_chunks = -(-len(reqs) // be.chunk)
     log(f"flush firehose {len(reqs)} sig shares, {n_chunks} chunks of {be.chunk}: all True; "
-        f"warm {warm_s:.2f} s = {len(reqs) / warm_s:.1f} verifies/s; first (stage-timed) "
-        f"{first_s:.2f} s: scan {stage['scan']:.2f} s over {n_chunks} chunks, "
-        f"pair {stage['pair']:.2f} s  [{card}]")
+        f"warm {warm_s:.3f} s = {len(reqs) / warm_s:.1f} verifies/s; first (stage-timed) "
+        f"{first_s:.3f} s: host prep {stage['prep']:.3f} s, scan {scan_s:.3f} s over {n_chunks} "
+        f"chunks, pair {stage['pair']:.3f} s  [{card}]")
+    log(f"flush firehose launches over the warm flush: {json.dumps(launches, sort_keys=True)}")
 
-    rogue = oc._twist_sample_point()
-    mixed, bad = _mixed_512(keys, VerifyRequest, suite, G2Elem, rogue)
+    # Third flush under torch.profiler: the device's busy share.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        be.verify_batch(reqs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    share = f"{100 * busy_us / wall_us:.2f}%" if busy_us > 0 else "not measured"
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:6]
+    log(f"flush firehose under torch.profiler: device busy {busy_us:.0f} us of {wall_us:.0f} us "
+        f"wall = {share}; by kernel: "
+        + "; ".join(f"{e.key[:40]} {e.self_device_time_total:.0f} us x{e.count}" for e in top)
+        + f"  [{card}]")
+
     t0 = time.perf_counter()
     got = be.verify_batch(mixed)
     dev_s = time.perf_counter() - t0
@@ -374,7 +578,8 @@ def phase_flush(card: str) -> None:
         raise AssertionError("mixed batch: TorchBackend != EagerBackend on the sample")
     log(f"flush mixed {len(mixed)} requests (sig/dec/ciphertext, 2 bad + 1 forged non-subgroup): "
         f"verdicts == BatchedBackend and EagerBackend sample; rejected {bad}; "
-        f"TorchBackend {dev_s:.2f} s, BatchedBackend (host) {host_s:.2f} s  [{card}]")
+        f"TorchBackend {dev_s:.3f} s, BatchedBackend (host) {host_s:.2f} s  [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -386,16 +591,29 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto import keys
+    from hbbft_tpu_torch.crypto.backend import VerifyRequest
+    from hbbft_tpu_torch.crypto.bls import curve as oc
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
 
     t0 = time.perf_counter()
-    build.build_all(["keccak"], verbose=True)
+    build.build_all(["keccak", "fq", "scan"], verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
+    suite = BLSSuite()
+    t0 = time.perf_counter()
+    firehose = _firehose(keys, VerifyRequest, suite)
+    mixed, bad = _mixed_512(keys, VerifyRequest, suite, G2Elem, oc._twist_sample_point())
+    log(f"built {len(firehose)} firehose and {len(mixed)} mixed requests on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     kernels = phase_kernels(card, leaf_shape=(104 * 104, 14))
+    kernels.append(phase_field(card))
+    kernels += phase_scan(card, firehose, mixed)
     launches = phase_dataplane(card)
+    launches.update(phase_flush(card, suite, firehose, mixed, bad))
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
-    phase_flush(card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` at
-first use, then loaded with :mod:`ctypes`.  The hash covers the source
-and the flags, so an edited source builds anew and an unchanged one is
-reused.  Nothing here runs at import time.
+first use, then loaded with :mod:`ctypes`.  The hash covers the source,
+every header of ``csrc/`` it includes (``#include "..."``, followed
+through the headers) and the flags, so an edited source or header builds
+anew and an unchanged one is reused.  Nothing here runs at import time.
 
 Every wrapper that launches a kernel adds one to :data:`LAUNCHES` under
 the kernel's name, and nowhere else, so a run can show which kernels its
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,10 +55,31 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in a fixed order."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return [seen[0]] + sorted(seen[1:])
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path, extra: List[str]) -> List[str]:

@@ -18,8 +18,10 @@ failure — with the group algebra in PyTorch on ``device``:
 
 The reference bucketed every shape to a power of two only to bound XLA
 recompiles; PyTorch compiles nothing, so the port runs at exact sizes.
-Both stages are plain PyTorch in this slice; their hand-written kernels
-are queued (K2, K3).
+On a CUDA device the scan stage is the hand-written K2 kernels
+(:mod:`.scan`, ``csrc/scan.cu``) and the field products under the pair
+stage are the K4 kernel (``csrc/fq.cu``); on the CPU both stages are the
+plain versions here.  The pair stage's own kernel is queued (K3).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
 from hbbft_tpu_torch.crypto.device import curve as dcurve
 from hbbft_tpu_torch.crypto.device import fq
 from hbbft_tpu_torch.crypto.device import pairing as dpairing
+from hbbft_tpu_torch.crypto.device import scan as dscan
 from hbbft_tpu_torch.device import DeviceLike, resolve
 from hbbft_tpu_torch.utils import canonical_bytes
 
@@ -207,15 +210,19 @@ class TorchBackend(CryptoBackend):
                 g1_entries.append((c, (-ct.u).jac, l, 1))
         return g2_entries, g1_entries, rhs
 
-    def _scan_prep(self, subsets: Sequence[Sequence[VerifyRequest]]):
+    def _scan_prep(self, subsets: Sequence[Sequence[VerifyRequest]], kernel: bool | None = None):
         """Host prep for one scan over independent RLC subsets (one chunk,
-        or the halves of one bisection level): returns the
-        :func:`scan_stage` arguments on ``self.device`` and ``pair_sub``,
-        the subset of each pair the stage will emit.  Each subset gets its
-        own Fiat-Shamir coefficients, exactly as if it were checked alone.
+        or the halves of one bisection level): returns the scan stage's
+        inputs on ``self.device`` and ``pair_sub``, the subset of each pair
+        the stage will emit.  The inputs are a :class:`.scan.ScanInputs`
+        for the K2 kernels when ``kernel`` (default: on a CUDA device),
+        else the :func:`scan_stage` arguments.  Each subset gets its own
+        Fiat-Shamir coefficients, exactly as if it were checked alone.
         A subset with no G1 (or G2) rows gets one identity row (scalar 0)
         so every stage sees a nonempty batch."""
         dev = self.device
+        if kernel is None:
+            kernel = dev.type == "cuda"
         ident1 = (1, 1, 0)
         ident2 = ((1, 0), (1, 0), (0, 0))
         g1e: List[Tuple[int, Any, int, int]] = []
@@ -241,6 +248,15 @@ class TorchBackend(CryptoBackend):
             rhs += s_rhs
             leg_sub += [s] * len(s_rhs)
         n_sub, nl = len(subsets), len(rhs)
+        pair_sub = list(range(n_sub)) + leg_sub
+        rhs_pts = dcurve.g2_to_dev(rhs, dev)
+        gen_pt = tuple(x[0] for x in dcurve.g1_to_dev([ocurve.G1_GEN], dev))
+        if kernel:
+            inputs = dscan.prepare(
+                [(c, p, chk) for c, p, _, chk in g1e], [l for _, _, l, _ in g1e], g1_sub,
+                g2e, g2_sub, nl, n_sub, rhs_pts, gen_pt, dev,
+            )
+            return inputs, pair_sub
 
         def onehot(rows: int, cols: Sequence[int]) -> torch.Tensor:
             m = np.zeros((rows, len(cols)), dtype=np.int64)
@@ -258,21 +274,22 @@ class TorchBackend(CryptoBackend):
         g2_bits_s = dcurve.scalars_to_bits([s for s, _ in sq], dcurve.G2_SCAN_NBITS, dev)
         g2_bits_q = dcurve.scalars_to_bits([q for _, q in sq], dcurve.G2_SCAN_NBITS, dev)
         g2_chk = torch.as_tensor([chk for _, _, chk in g2e], device=dev)
-        rhs_pts = dcurve.g2_to_dev(rhs, dev)
-        gen_pt = tuple(x[0] for x in dcurve.g1_to_dev([ocurve.G1_GEN], dev))
         args = (
             g1_pts, g1_bits, g1_chk, seg, onehot(n_sub, g1_sub),
             g2_pts, g2_bits_s, g2_bits_q, g2_chk, onehot(n_sub, g2_sub),
             rhs_pts, gen_pt,
         )
-        return args, list(range(n_sub)) + leg_sub
+        return args, pair_sub
 
     def _scan(self, subsets: Sequence[Sequence[VerifyRequest]]):
-        """One scan stage over ``subsets``; returns (sub_ok, lhs, rhs,
-        pair_sub) with the tensors on device and no host sync, so chunks
-        queue back to back."""
-        args, pair_sub = self._scan_prep(subsets)
-        return (*scan_stage(*args), pair_sub)
+        """One scan stage over ``subsets`` — the K2 kernels on a CUDA
+        device, the plain :func:`scan_stage` on the CPU; returns (sub_ok,
+        lhs, rhs, pair_sub) with the tensors on device and no host sync,
+        so chunks queue back to back."""
+        inputs, pair_sub = self._scan_prep(subsets)
+        if self.device.type == "cuda":
+            return (*dscan.scan_stage_kernel(inputs), pair_sub)
+        return (*scan_stage(*inputs), pair_sub)
 
     def _check_parts(self, parts) -> bool:
         """Combine one or more single-subset scan outputs into a single

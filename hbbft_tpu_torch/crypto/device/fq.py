@@ -28,17 +28,28 @@ Differences from the reference that change no limb:
 * ``is_zero``'s exact test carries 5-limb (55-bit) groups instead of
   single limbs: the same predicate in 8 sequential steps instead of 36.
 
-This module is plain PyTorch: its hand-written kernel is queued (K4).
+The product has a hand-written CUDA kernel (K4, ``csrc/fq.cu`` on
+``csrc/fq.cuh``).  :func:`mont_mul` routes by the tensors' device: the
+kernel for CUDA tensors, :func:`mont_mul_plain` (the reference's
+algorithm, limb for limb) for CPU tensors.  The kernel's output is the
+same value mod P, fully reduced with strict limbs — inside every op's
+input bound, but not the plain limbs — so kernel results are compared
+with the plain version as canonical values.  Every op here that
+multiplies (``mont_sqr``, ``is_zero``, ``pow_fixed``, ``inv``) and every
+module above (fq2, fq12, curve, pairing) reaches the kernel through
+:func:`mont_mul`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from hbbft_tpu_torch import build
 from hbbft_tpu_torch.crypto.bls.fields import P
 
 B = 11
@@ -205,8 +216,9 @@ def _conv_const(a: torch.Tensor, name: str) -> torch.Tensor:
     return (a.to(torch.float64) @ mat).to(I64)
 
 
-def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a·b·R^-1 (mod P), batched (broadcasting).
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a·b·R^-1 (mod P), batched (broadcasting): the
+    plain version, the reference's algorithm limb for limb.
 
     SOS with redundant nonneg limbs: T = a·b; m ≡ T·N' (mod R);
     t = (T + m·P)/R.  The carried low part's value is exactly corr·R
@@ -223,6 +235,53 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     hi = full[..., NL : 2 * NL]
     hi[..., 0] += corr
     return _carry(hi, rounds=1)[..., :NL]
+
+
+KERNEL = "fq_mont_mul"
+
+
+@lru_cache(maxsize=1)
+def _launcher():
+    """The kernel's C entry point, built and loaded at first use."""
+    fn = build.load("fq").hbbft_fq_mont_mul
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mont_mul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel on (..., NL) int64 limb tensors on one card
+    (broadcasting): a·b·R^-1 (mod P), fully reduced, strict limbs.
+    Launches on the current stream; does not synchronise."""
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError("mont_mul_kernel needs both operands on one CUDA device")
+    if a.dtype != I64 or b.dtype != I64:
+        raise ValueError(f"mont_mul_kernel needs int64 limbs, got {a.dtype}, {b.dtype}")
+    a, b = torch.broadcast_tensors(a, b)
+    if a.dim() == 0 or a.shape[-1] != NL:
+        raise ValueError(f"mont_mul_kernel needs (..., {NL}) limbs, got {tuple(a.shape)}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty(a.shape, dtype=I64, device=a.device)
+    n = out.numel() // NL
+    if n == 0:
+        return out
+    fn = _launcher()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream)
+    build.LAUNCHES[KERNEL] += 1
+    build.check(rc, "hbbft_fq_mont_mul")
+    return out
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a·b·R^-1 (mod P), batched (broadcasting): the
+    kernel for CUDA tensors, the plain version for CPU tensors — no other
+    fallback."""
+    if a.device.type == "cuda" or b.device.type == "cuda":
+        return mont_mul_kernel(a, b)
+    return mont_mul_plain(a, b)
 
 
 def mont_sqr(a: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,10 @@ equality of verdict lists.
 
 The request mixes are the ones ``tests/test_tpu_crypto.py`` runs through
 ``TpuBackend`` and pins to the expected verdict lists asserted below, so
-the port equals ``TpuBackend`` on them through those lists.  The direct
+the port equals ``TpuBackend`` on them through those lists; the
+multi-chunk mix is that test's cut to two chunks of three requests (every
+plain CPU stage costs seconds whatever its rows), checked against both
+host backends.  The direct
 ``TpuBackend`` call (seed-77 mix, whose kernel shapes
 ``test_tpu_crypto.py`` already compiles) is marked ``slow``: even with a
 warm XLA cache it spends about 150 s tracing and loading its kernels on
@@ -28,7 +31,7 @@ from hbbft_tpu.crypto.bls import curve as ref_oc
 from hbbft_tpu.crypto.bls.suite import BLSSuite as RefSuite
 from hbbft_tpu.crypto.bls.suite import G2Elem as RefG2Elem
 from hbbft_tpu.crypto.tpu.backend import TpuBackend
-from hbbft_tpu_torch import convert
+from hbbft_tpu_torch import build, convert
 from hbbft_tpu_torch.crypto import keys as port_keys
 from hbbft_tpu_torch.crypto.backend import BatchedBackend, EagerBackend, VerifyRequest
 from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
@@ -83,18 +86,25 @@ def _forged(keys, Request, suite, G2, rogue_pt):
     return reqs
 
 
+# Two chunks of a few rows: the cross-chunk combined check, then the
+# per-chunk recheck and bisection when a share is bad.
+MULTI_CHUNK, MULTI_BAD = 3, 4
+
+
 def _multi_chunk(keys, Request, suite, bad=True):
-    """tests/test_tpu_crypto.py::test_tpu_backend_multi_chunk_combined."""
+    """tests/test_tpu_crypto.py::test_tpu_backend_multi_chunk_combined cut
+    from 24 requests in three chunks of 8 to 6 requests in two chunks of
+    3 (the same keys, message and bad signer; the bad share in chunk 2)."""
     rngpy = random.Random(99)
     sks = keys.SecretKeySet.random(2, rngpy, suite)
     pks = sks.public_keys()
     msg = b"two-stage flush doc"
     reqs = [
-        Request.sig_share(pks.public_key_share(i % 8), msg, sks.secret_key_share(i % 8).sign(msg))
-        for i in range(24)
+        Request.sig_share(pks.public_key_share(i), msg, sks.secret_key_share(i).sign(msg))
+        for i in range(2 * MULTI_CHUNK)
     ]
     signer = 4 if bad else 5
-    reqs[13] = Request.sig_share(
+    reqs[MULTI_BAD] = Request.sig_share(
         pks.public_key_share(5), msg, sks.secret_key_share(signer).sign(msg))
     return reqs
 
@@ -141,13 +151,15 @@ def test_torch_backend_matches_reference_backends(case):
     else:
         ref = _multi_chunk(ref_keys, RefRequest, ref_suite)
         port = _multi_chunk(port_keys, VerifyRequest, suite)
-        want = [True] * 24
-        want[13] = False
+        want = [True] * (2 * MULTI_CHUNK)
+        want[MULTI_BAD] = False
     # The carried-across requests are the port's own, byte for byte.
     assert _payload_bytes(convert.requests_from_reference(ref, suite)) == _payload_bytes(port)
 
-    chunk = 8 if case == "multi_chunk" else 2048
+    chunk = MULTI_CHUNK if case == "multi_chunk" else 2048
+    build.reset_launches()
     got = TorchBackend(suite, device="cpu", chunk=chunk).verify_batch(port)
+    assert not build.LAUNCHES  # CPU tensors: the plain scan and field ops, no kernel
     assert got == want
     assert got == RefBatched(ref_suite).verify_batch(ref)
     assert got == BatchedBackend(suite).verify_batch(port)
@@ -187,10 +199,10 @@ def test_copied_host_backends_match_the_originals():
 def test_multi_chunk_all_good_takes_the_combined_path():
     suite = BLSSuite()
     reqs = _multi_chunk(port_keys, VerifyRequest, suite, bad=False)
-    be = TorchBackend(suite, device="cpu", chunk=8)
+    be = TorchBackend(suite, device="cpu", chunk=MULTI_CHUNK)
     calls = []
     be._bisect = lambda *a: calls.append(a)
-    assert be.verify_batch(reqs) == [True] * 24
+    assert be.verify_batch(reqs) == [True] * (2 * MULTI_CHUNK)
     assert calls == []  # the combined check passed; no chunk was rechecked
 
 

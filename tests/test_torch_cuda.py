@@ -2,17 +2,29 @@
 versions, on the card.  A CUDA kernel has no CPU or interpret mode, so
 these tests skip without a card; run them on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q`` (the
-shared conftest imports jax, which this file does not need).  Tolerance: exact
-(byte-identical digests and proofs).
+shared conftest imports jax, which this file does not need).  Tolerance:
+exact — byte-identical digests and proofs; field elements equal as
+canonical values mod P; points equal as canonical affine points (or both
+the identity); verdicts equal.
 """
 
 import hashlib
+import random
 
 import numpy as np
 import pytest
 import torch
 
 from hbbft_tpu_torch import build
+from hbbft_tpu_torch.crypto import keys
+from hbbft_tpu_torch.crypto.backend import BatchedBackend, VerifyRequest
+from hbbft_tpu_torch.crypto.bls import curve as oc
+from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
+from hbbft_tpu_torch.crypto.device import backend as dbackend
+from hbbft_tpu_torch.crypto.device import curve as dc
+from hbbft_tpu_torch.crypto.device import fq
+from hbbft_tpu_torch.crypto.device import scan as dscan
+from hbbft_tpu_torch.crypto.device.backend import TorchBackend
 from hbbft_tpu_torch.ops.device import dataplane as dp
 from hbbft_tpu_torch.ops.device import keccak as K
 
@@ -22,7 +34,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the keccak kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -48,3 +60,76 @@ def test_dataplane_on_card_matches_cpu(cuda):
     assert build.LAUNCHES[K.KERNEL] == 1 + 4  # leaves + one per tree level
     on_cpu = dp.encode_and_prove(values, 4, 10, device="cpu")
     assert on_card == on_cpu
+
+
+def _canonical(limbs: torch.Tensor) -> list:
+    return [fq.from_limbs_int(row) % fq.P for row in limbs.reshape(-1, fq.NL).cpu()]
+
+
+def test_fq_mont_mul_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(3)
+    vals = [int.from_bytes(rng.bytes(49), "little") % (1 << 386) for _ in range(2048)]
+    vals[:5] = [0, 1, fq.P - 1, fq.P, (1 << 386) - 1]
+    a = torch.as_tensor(fq.ints_to_limbs_batch(vals), device=cuda)
+    a[5, :35:3] = 4096  # limbs at the top of the range, value < 2^386
+    a[5, 35] = 0
+    b = a.flip(0).contiguous()
+    build.reset_launches()
+    got = fq.mont_mul(a, b)
+    assert build.LAUNCHES[fq.KERNEL] == 1
+    assert int(got.max()) < 2048 and int(got.min()) >= 0
+    assert _canonical(got) == _canonical(fq.mont_mul_plain(a, b))
+    # Broadcasting and a non-contiguous operand.
+    one = fq.const("one", cuda)
+    assert _canonical(fq.mont_mul(a[::2], one)) == _canonical(fq.mont_mul_plain(a[::2], one))
+
+
+def _same_points(p, q, group) -> bool:
+    frm, ops = (dc.g1_from_dev, oc.FQ_OPS) if group == 1 else (dc.g2_from_dev, oc.FQ2_OPS)
+    return all(oc.jac_eq(ops, frm(p, i), frm(q, i)) for i in range(p[3].shape[0]))
+
+
+def _subsets(suite):
+    rng = random.Random(21)
+    sks = keys.SecretKeySet.random(1, rng, suite)
+    pks = sks.public_keys()
+    sig = [VerifyRequest.sig_share(pks.public_key_share(i), b"doc %d" % (i % 2),
+                                   sks.secret_key_share(i).sign(b"doc %d" % (i % 2)))
+           for i in range(40)]
+    ct = pks.public_key().encrypt(b"tx", rng)
+    dec = VerifyRequest.dec_share(pks.public_key_share(2), ct,
+                                  sks.secret_key_share(2).decryption_share(ct))
+    forged = VerifyRequest.sig_share(pks.public_key_share(3), b"doc 1",
+                                     keys.SignatureShare(G2Elem(oc._twist_sample_point()), suite))
+    bad = VerifyRequest.sig_share(pks.public_key_share(4), b"doc 0",
+                                  sks.secret_key_share(5).sign(b"doc 0"))
+    return [sig[:30] + [VerifyRequest.ciphertext(ct), dec], sig[30:] + [forged], [bad]]
+
+
+def test_scan_kernel_matches_plain_scan_stage(cuda):
+    suite = BLSSuite()
+    be = TorchBackend(suite, device=cuda)
+    subsets = _subsets(suite)
+    inp, pair_sub = be._scan_prep(subsets)
+    plain_args, plain_pair_sub = be._scan_prep(subsets, kernel=False)
+    assert pair_sub == plain_pair_sub
+    build.reset_launches()
+    sub_ok, lhs, rhs = dscan.scan_stage_kernel(inp)
+    torch.cuda.synchronize()
+    assert {k: build.LAUNCHES[k] for k in dscan.KERNELS} == {
+        dscan.G1_ROWS: 1, dscan.G2_ROWS: 1, dscan.G1_SUMS: 2, dscan.G2_SUMS: 2}
+    want_ok, want_lhs, want_rhs = dbackend.scan_stage(*plain_args)
+    assert sub_ok.tolist() == want_ok.tolist() == [True, False, True]
+    assert _same_points(lhs, want_lhs, 1)
+    assert _same_points(rhs, want_rhs, 2)
+
+
+def test_torch_backend_on_card_matches_batched(cuda):
+    suite = BLSSuite()
+    reqs = [r for s in _subsets(suite) for r in s]
+    build.reset_launches()
+    got = TorchBackend(suite, device=cuda, chunk=16).verify_batch(reqs)
+    assert got == BatchedBackend(suite).verify_batch(reqs)
+    assert got.count(False) == 2
+    assert build.LAUNCHES[fq.KERNEL] > 0
+    assert all(build.LAUNCHES[k] > 0 for k in dscan.KERNELS)

@@ -70,6 +70,20 @@ def test_no_source_imports_the_reference_package():
     assert offenders == []
 
 
+def test_no_source_loads_the_host_build_of_the_kernels():
+    """``csrc/host_check.cc`` (the kernels' headers built for the host) is
+    for the tests only: no module of the port names it."""
+    offenders = []
+    for dirpath, _dirnames, filenames in os.walk(PKG):
+        for fn in filenames:
+            if fn.endswith(".py"):
+                path = os.path.join(dirpath, fn)
+                if "host_check" in open(path, encoding="utf-8").read():
+                    offenders.append(path)
+    assert offenders == []
+    assert os.path.exists(os.path.join(PKG, "csrc", "host_check.cc"))
+
+
 def test_entry_points_refuse_without_a_card():
     code = (
         "import torch\n"

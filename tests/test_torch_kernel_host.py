@@ -1,0 +1,344 @@
+"""The arithmetic of the hand-written kernels (``csrc/fq.cuh``,
+``csrc/curve.cuh``) on the CPU, against Python integers and the BLS oracle.
+
+A CUDA kernel does not run here, but its headers are ``__host__
+__device__`` code: ``csrc/host_check.cc`` includes them and is compiled
+with the host C++ compiler into a temporary directory, and these tests
+drive it.  On the card the same headers run, with the Montgomery rows as
+PTX carry chains instead of ``uint64_t``; ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` hold the kernels against the plain versions there.
+
+Tolerance: exact.  Field results are compared as canonical values mod P,
+points as exact projective equality, verdicts as booleans; every output
+must also be in the port's strict format (limbs < 2^11, value < P).
+"""
+
+import random
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from hbbft_tpu.crypto.bls import curve as oc
+from hbbft_tpu.crypto.bls import fields as OF
+from hbbft_tpu.crypto.bls.suite import BLSSuite
+from hbbft_tpu_torch.crypto.device import curve as dc
+from hbbft_tpu_torch.crypto.device import fq, fq2
+from hbbft_tpu_torch.crypto.device import scan as dscan
+
+P = OF.P
+NL = fq.NL
+CSRC = Path(fq.__file__).resolve().parents[2] / "csrc"
+R_INV = pow(1 << fq.R_BITS, -1, P)
+
+
+@pytest.fixture(scope="module")
+def host_check(tmp_path_factory):
+    """The host build of the kernel headers (skips only without g++)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel headers for the host")
+    out = tmp_path_factory.mktemp("kernel_host") / "host_check"
+    subprocess.run(
+        [gxx, "-x", "c++", "-std=c++17", "-O2", "-Wall", "-Werror", f"-I{CSRC}",
+         "-o", str(out), str(CSRC / "host_check.cc")],
+        check=True, capture_output=True, text=True, timeout=300,
+    )
+
+    def run(lines):
+        res = subprocess.run([str(out)], input="\n".join(lines) + "\n", check=True,
+                             capture_output=True, text=True, timeout=300)
+        rows = [[int(v) for v in row.split()] for row in res.stdout.splitlines()]
+        assert len(rows) == len(lines)
+        return rows
+
+    return run
+
+
+def _ints(a) -> str:
+    return " ".join(str(int(v)) for v in np.asarray(a).reshape(-1))
+
+
+def _strict_value(limbs) -> int:
+    """Value of one output element, asserting the strict format."""
+    arr = np.asarray(limbs)
+    assert arr.min() >= 0 and arr.max() < 2048
+    v = fq.from_limbs_int(arr)
+    assert v < P
+    return v
+
+
+def _loose_limbs(rng: random.Random, value: int) -> np.ndarray:
+    """Limbs of ``value`` with borrows pushed down, so that some limbs sit
+    above 2047 (up to 4096, the top of the port's limb range)."""
+    limbs = fq.to_limbs_np(value).copy()
+    for i in rng.sample(range(NL - 1), 12):
+        if limbs[i + 1] >= 2 and limbs[i] == 0 and rng.random() < 0.5:
+            limbs[i + 1] -= 2
+            limbs[i] = 4096
+        elif limbs[i + 1] >= 1 and limbs[i] < 2048:
+            limbs[i + 1] -= 1
+            limbs[i] += 2048
+    assert fq.from_limbs_int(limbs) == value and limbs.max() <= 4096
+    return limbs
+
+
+def _edge_operands(rng: random.Random, n: int):
+    """n seeded operand pairs: random values below 2^386 (the product's
+    input bound) in loose limbs, and the edges 0, 1, P - 1, P, 2P,
+    2^386 - 1 and elements whose limbs are 4096."""
+    edges = [0, 1, P - 1, P, 2 * P, (1 << 386) - 1, (1 << 385) + 4096]
+    four = np.zeros(NL, dtype=np.int64)
+    four[::3] = 4096  # many limbs of 4096, value < 2^386
+    four[NL - 1] = 0
+    pairs = []
+    for i in range(n):
+        a = edges[i] if i < len(edges) else rng.randrange(1 << 386)
+        b = edges[-1 - i] if i < len(edges) else rng.randrange(1 << 386)
+        la, lb = _loose_limbs(rng, a), _loose_limbs(rng, b)
+        if i == len(edges):
+            la = four
+        if i == len(edges) + 1:
+            la = lb = four
+        pairs.append((la, lb))
+    return pairs
+
+
+def test_montgomery_product_and_conversions_match_python_ints(host_check):
+    rng = random.Random(4)
+    pairs = _edge_operands(rng, 1200)
+    lines = []
+    for la, lb in pairs:
+        lines.append(f"M {_ints(la)} {_ints(lb)}")
+        lines.append(f"R {_ints(la)}")
+    out = host_check(lines)
+    for k, (la, lb) in enumerate(pairs):
+        a, b = fq.from_limbs_int(la), fq.from_limbs_int(lb)
+        assert _strict_value(out[2 * k]) == a * b * R_INV % P, k
+        assert _strict_value(out[2 * k + 1]) == a % P, k
+    # The plain product on the same limbs gives the same values mod P.
+    a = torch.as_tensor(np.stack([la for la, _ in pairs[:64]]))
+    b = torch.as_tensor(np.stack([lb for _, lb in pairs[:64]]))
+    plain = fq.mont_mul_plain(a, b)
+    for k in range(64):
+        assert fq.from_limbs_int(plain[k]) % P == _strict_value(out[2 * k]), k
+
+
+def test_fq2_ops_match_python_ints(host_check):
+    rng = random.Random(8)
+    els = [((rng.randrange(P), rng.randrange(P)), (rng.randrange(P), rng.randrange(P)))
+           for _ in range(40)]
+    els[0] = ((0, 0), (P - 1, 1))
+    lines = [f"F2 {_ints(fq2.to_mont_np(a))} {_ints(fq2.to_mont_np(b))}" for a, b in els]
+    out = host_check(lines)
+    for (a, b), row in zip(els, out):
+        got = [fq2.from_mont_int(np.asarray(row[72 * k: 72 * (k + 1)]).reshape(2, NL))
+               for k in range(7)]
+        for k in range(7):
+            for c in range(2):
+                lo = 72 * k + NL * c
+                _strict_value(row[lo: lo + NL])
+        (a0, a1), (b0, b1) = a, b
+        want = [
+            ((a0 * b0 - a1 * b1) % P, (a0 * b1 + a1 * b0) % P),
+            ((a0 * a0 - a1 * a1) % P, (2 * a0 * a1) % P),
+            (a0, (-a1) % P),
+            ((a0 - a1) % P, (a0 + a1) % P),
+            ((a0 + b0) % P, (a1 + b1) % P),
+            ((a0 - b0) % P, (a1 - b1) % P),
+            ((-a0) % P, (-a1) % P),
+        ]
+        assert got == want
+
+
+def _rogue_g1():
+    """A point on E(Fq) outside G1 (tests/test_torch_curve.py)."""
+    x = 1
+    while True:
+        rhs = (x * x * x + oc.B1) % P
+        y = pow(rhs, (P + 1) // 4, P)
+        if y * y % P == rhs and not oc.g1_in_subgroup((x, y, 1)):
+            return (x, y, 1)
+        x += 1
+
+
+def _row_cases(group):
+    """Points and coefficients: a genuine point with a random 128-bit
+    coefficient, the same with scalar 0 and with all 128 bits set, the
+    identity, a non-subgroup point (the forged G2 point of
+    ``_twist_sample_point``) and a point of small order."""
+    suite = BLSSuite()
+    rng = random.Random(11)
+    if group == "g1":
+        gen, ops = suite.g1_generator(), oc.FQ_OPS
+        rogue = _rogue_g1()
+        ident = suite.g1_identity().jac
+    else:
+        gen, ops = suite.g2_generator(), oc.FQ2_OPS
+        rogue = oc._twist_sample_point()
+        ident = suite.g2_identity().jac
+    small = oc.jac_mul(ops, rogue, OF.R)  # order divides the cofactor
+    genuine = (gen * 4321).jac
+    jacs = [genuine, genuine, genuine, ident, rogue, small, gen.jac]
+    coeffs = [rng.getrandbits(128), 0, (1 << 128) - 1, rng.getrandbits(128),
+              rng.getrandbits(128), rng.getrandbits(128), 1]
+    return jacs, coeffs, ops
+
+
+def _g1_line(jac, c):
+    x, y, z, inf = dc.g1_to_dev([jac])
+    return f"G1 {_ints(x)} {_ints(y)} {_ints(z)} {int(inf[0])} {_ints(dscan.pack_words([c], 16))}"
+
+
+def _g2_line(jac, c):
+    x, y, z, inf = dc.g2_to_dev([jac])
+    s, q = dc.decompose_g2_scalar(c)
+    return (f"G2 {_ints(x)} {_ints(y)} {_ints(z)} {int(inf[0])} "
+            f"{_ints(dscan.pack_words([s + (q << 64)], 20))}")
+
+
+def _g1_out(row):
+    x, y, z = (fq.from_mont_int(np.asarray(row[NL * k: NL * (k + 1)])) for k in range(3))
+    return (x, y, z), row[3 * NL], row[3 * NL + 1]
+
+
+def _g2_out(row):
+    x, y, z = (fq2.from_mont_int(np.asarray(row[2 * NL * k: 2 * NL * (k + 1)]).reshape(2, NL))
+               for k in range(3))
+    return (x, y, z), row[6 * NL], row[6 * NL + 1]
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_row_scans_match_oracle(host_check, group):
+    jacs, coeffs, ops = _row_cases(group)
+    line, parse = (_g1_line, _g1_out) if group == "g1" else (_g2_line, _g2_out)
+    member = oc.g1_in_subgroup if group == "g1" else oc.g2_in_subgroup
+    out = host_check([line(j, c) for j, c in zip(jacs, coeffs)])
+    verdicts = []
+    for k, (jac, c) in enumerate(zip(jacs, coeffs)):
+        pt, inf, sub = parse(out[k])
+        verdicts.append(bool(sub))
+        if c == 0 or k == 3:  # scalar 0, the identity row
+            assert inf == 1, k
+        elif member(jac):
+            assert inf == 0 and oc.jac_eq(ops, pt, oc.jac_mul(ops, jac, c)), k
+    assert verdicts == [member(j) for j in jacs]
+    assert verdicts == [True, True, True, True, False, False, True]
+
+
+def _scan_subsets():
+    """Two RLC subsets of the three request kinds; the second holds the
+    forged non-subgroup share (tests/test_torch_backend.py::_forged)."""
+    from hbbft_tpu_torch.crypto import keys
+    from hbbft_tpu_torch.crypto.backend import VerifyRequest as Req
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite as PortSuite
+    from hbbft_tpu_torch.crypto.bls.suite import G2Elem
+
+    suite = PortSuite()
+    rng = random.Random(21)
+    sks = keys.SecretKeySet.random(1, rng, suite)
+    pks = sks.public_keys()
+    sig = [Req.sig_share(pks.public_key_share(i), b"doc %d" % (i % 2),
+                         sks.secret_key_share(i).sign(b"doc %d" % (i % 2))) for i in range(5)]
+    ct = pks.public_key().encrypt(b"tx", rng)
+    dec = Req.dec_share(pks.public_key_share(2), ct, sks.secret_key_share(2).decryption_share(ct))
+    forged = Req.sig_share(pks.public_key_share(3), b"doc 1",
+                           keys.SignatureShare(G2Elem(oc._twist_sample_point()), suite))
+    return suite, [sig[:3] + [Req.ciphertext(ct), dec], sig[3:] + [forged]]
+
+
+def test_kernel_scan_layout_matches_oracle_sums(host_check, monkeypatch):
+    """The K2 host prep (packed words, rows ordered by leg, pieces) with
+    the kernels' row scans run by the host build and their two sum passes
+    replayed piece by piece: the sums and verdicts the kernels would
+    return, against oracle sums over the plain scan's own inputs."""
+    from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+
+    monkeypatch.setattr(dscan, "PIECE_ROWS", 1)  # several pieces per segment
+    suite, subsets = _scan_subsets()
+    be = TorchBackend(suite, device="cpu")
+    inp, pair_sub = be._scan_prep(subsets, kernel=True)
+    plain, plain_pair_sub = be._scan_prep(subsets, kernel=False)
+    assert pair_sub == plain_pair_sub
+    assert inp.g1_pieces.tolist()[-1] == inp.g1_words.shape[0]
+    assert len(inp.g1_pieces) > len(inp.g1_segments)  # segments were cut
+
+    def words_int(words) -> int:
+        return sum((int(w) & 0xFFFFFFFF) << (32 * k) for k, w in enumerate(words.tolist()))
+
+    xabs = -OF.BLS_X
+    sq = [words_int(w) for w in inp.g2_words]
+    g1 = [_g1_line(dc.g1_from_dev(inp.g1_pts, i), words_int(w))
+          for i, w in enumerate(inp.g1_words)]
+    g2 = [_g2_line(dc.g2_from_dev(inp.g2_pts, i), (v >> 64) * xabs + (v & ((1 << 64) - 1)))
+          for i, v in enumerate(sq)]
+    rows1 = [_g1_out(r) for r in host_check(g1)]
+    rows2 = [_g2_out(r) for r in host_check(g2)]
+
+    def replay(rows, pieces, segments, ops):
+        def add_all(pts):
+            acc = oc.jac_identity(ops)
+            for p in pts:
+                acc = oc.jac_add(ops, acc, p)
+            return acc
+
+        ident = oc.jac_identity(ops)
+        pts = [ident if inf else pt for pt, inf, _ in rows]
+        partial = [add_all(pts[a:b]) for a, b in zip(pieces[:-1], pieces[1:])]
+        return [add_all(partial[a:b]) for a, b in zip(segments[:-1], segments[1:])]
+
+    leg_sums = replay(rows1, inp.g1_pieces.tolist(), inp.g1_segments.tolist(), oc.FQ_OPS)
+    gen_legs = replay(rows2, inp.g2_pieces.tolist(), inp.g2_segments.tolist(), oc.FQ2_OPS)
+    sub_ok = [True] * inp.n_sub
+    for rows, chk, sub in ((rows1, inp.g1_chk, inp.g1_sub), (rows2, inp.g2_chk, inp.g2_sub)):
+        for (_, _, ok), c, s in zip(rows, chk.tolist(), sub.tolist()):
+            if c and not ok:
+                sub_ok[s] = False
+    assert sub_ok == [True, False]
+
+    # The oracle over the plain scan's inputs: bit matrices and one-hot masks.
+    (g1_pts, g1_bits, g1_chk, seg, g1_sub, g2_pts, g2_bits_s, g2_bits_q, g2_chk,
+     g2_sub, _rhs, _gen) = plain
+    c1 = [int("".join(map(str, b.tolist()[::-1])), 2) for b in g1_bits]
+    c2 = [int("".join(map(str, q.tolist())), 2) * xabs + int("".join(map(str, s.tolist())), 2)
+          for s, q in zip(g2_bits_s, g2_bits_q)]
+    p1 = [dc.g1_from_dev(g1_pts, i) for i in range(len(c1))]
+    p2 = [dc.g2_from_dev(g2_pts, i) for i in range(len(c2))]
+    for l in range(seg.shape[0]):
+        want = oc.jac_identity(oc.FQ_OPS)
+        for i in np.flatnonzero(seg[l].numpy()):
+            want = oc.jac_add(oc.FQ_OPS, want, oc.jac_mul(oc.FQ_OPS, p1[i], c1[i]))
+        assert oc.jac_eq(oc.FQ_OPS, leg_sums[l], want), l
+    for s in range(len(subsets)):
+        want = oc.jac_identity(oc.FQ2_OPS)
+        for i in np.flatnonzero(g2_sub[s].numpy()):
+            if oc.g2_in_subgroup(p2[i]):  # [c]Q by psi is exact for members only
+                want = oc.jac_add(oc.FQ2_OPS, want, oc.jac_mul(oc.FQ2_OPS, p2[i], c2[i]))
+        if s == 0:
+            assert oc.jac_eq(oc.FQ2_OPS, gen_legs[s], want)
+    want_ok = [all(oc.g1_in_subgroup(p1[i]) or not g1_chk[i] for i in np.flatnonzero(g1_sub[s].numpy()))
+               and all(oc.g2_in_subgroup(p2[i]) or not g2_chk[i]
+                       for i in np.flatnonzero(g2_sub[s].numpy()))
+               for s in range(len(subsets))]
+    assert sub_ok == want_ok
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+
+    a = torch.as_tensor(fq.to_mont_batch([3, 5, P - 1]))
+    build.reset_launches()
+    assert torch.equal(fq.mont_mul(a, a.flip(0)), fq.mont_mul_plain(a, a.flip(0)))
+    assert not build.LAUNCHES
+    # The kernel wrappers refuse CPU tensors instead of falling back.
+    with pytest.raises(ValueError):
+        fq.mont_mul_kernel(a, a)
+    suite, subsets = _scan_subsets()
+    inp, _ = TorchBackend(suite, device="cpu")._scan_prep(subsets, kernel=True)
+    with pytest.raises(ValueError):
+        dscan.scan_stage_kernel(inp)
+    assert not build.LAUNCHES

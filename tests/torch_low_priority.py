@@ -1,34 +1,34 @@
-"""Run a CPU-bound port test at the lowest CPU priority, one at a time.
+"""Run a CPU-bound port test at a lowered CPU priority.
 
-The port's CPU tests spend minutes in single-threaded PyTorch loops and
-eager JAX calls.  Under ``pytest -n 6 --dist loadfile`` the port's test
-files land on several workers at once, and some reference tests beside
-them are timing-sensitive (process clusters that compare presubmit
-digests across runs; they fail beside three or more busy processes).
-``low_priority`` therefore
+The port's CPU tests spend seconds to minutes in single-threaded PyTorch
+loops and eager JAX calls.  Under ``pytest -n 6 --dist loadfile`` the
+port's test files land on several workers, and some reference tests
+beside them are timing-sensitive (process clusters that compare presubmit
+digests across runs; they fail beside several busy processes).
+``low_priority`` therefore runs the test body in a helper thread whose
+own nice value is raised to :data:`NICE`, so a test beside it that needs
+a core gets it first.  Only that thread is lowered: the worker's main
+thread, and every process it spawns later, keep their priority.
 
-* takes an exclusive lock on one file in the temporary directory, so at
-  most one such test runs at a time across all the workers of a run (the
-  others wait, idle), and
-* runs the test body in a helper thread whose own nice value is raised
-  to 19, so a test beside it that needs a core gets it first.  Only that
-  thread is lowered: the worker's main thread, and every process it
-  spawns later, keep their priority.
+It takes no lock and does not wait for other workers: a worker that
+waited would hold its file (``--dist loadfile``) and run nothing else.
+The nice value is moderate, not 19: under the scheduler's weights a
+nice-10 thread still gets about a tenth of a contended core, so a port
+test keeps moving on a loaded box instead of waiting for the rest of the
+suite to end.
 
 The caller's intra-op thread count is carried into the helper thread:
 OpenMP keeps it per thread, and a fresh thread would otherwise fan every
 op out to all cores.  What the test checks is unchanged.
 """
 
-import fcntl
 import functools
 import os
-import tempfile
 import threading
 
 import torch
 
-LOCK_PATH = os.path.join(tempfile.gettempdir(), "hbbft_tpu_torch_tests.lock")
+NICE = 10
 
 
 def low_priority(test):
@@ -40,11 +40,9 @@ def low_priority(test):
         def body():
             torch.set_num_threads(threads)
             # Linux: PRIO_PROCESS with a thread id sets that thread only.
-            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), NICE)
             try:
-                with open(LOCK_PATH, "a") as lock:
-                    fcntl.flock(lock, fcntl.LOCK_EX)  # released when closed
-                    result["value"] = test(*args, **kwargs)
+                result["value"] = test(*args, **kwargs)
             except BaseException as exc:  # re-raised in the test's thread
                 result["error"] = exc
 
