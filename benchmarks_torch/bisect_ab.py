@@ -12,8 +12,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 benchmarks_torch/bisect_ab.py
 
-The depth-first order makes about 49 aggregate checks on this batch, so a
-run takes many minutes.
+The depth-first order makes 49 aggregate checks on this batch and the
+level-wide order 10; with the K2 and K3 kernels a run takes seconds.
 """
 
 from __future__ import annotations

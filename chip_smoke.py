@@ -8,22 +8,27 @@ Phases (any failure raises and the script exits nonzero):
 
 0. setup: the card's name and power limit, torch version, and the
    build of every hand-written CUDA kernel (one ``nvcc`` per source, all
-   started together);
+   started together: keccak, fq, scan, pair);
 1. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with its time, the plain version's time and the
    least time the card could take (its bound): the Keccak kernel (K1) at
    the data plane's leaf shape; the Fq product (K4) on 2,048 rows with
    edge limbs; the scan-stage kernels (K2) on one firehose chunk (2,048
    G1 + 2,048 G2 rows) and on the mixed-512 batch in one subset, whose
-   forged non-subgroup point must clear its verdict;
+   forged non-subgroup point must clear its verdict; the pair-stage
+   kernels (K3) on the firehose's combined pairs and on the mixed-512
+   bisection levels of two- and one-request subsets, verdicts and Miller
+   values equal to the plain pair stage;
 2. the reliable-broadcast data plane at N = 104 validators, 64,000-byte
    proposals (one HoneyBadger epoch): every proof checked, sampled proofs
-   and parity held against the host Merkle tree and Reed-Solomon code, and
-   the kernels' launch counts over that run;
+   and parity held against the host Merkle tree and Reed-Solomon code, the
+   kernels' launch counts over that run, and the times and bounds of its
+   two device stages (the RS bit product, K5; the leaf and level hashing,
+   K6);
 3. the share-verification flush: the 10,240-request sig-share firehose
    (all valid, 5 chunks) split into host prep, scan and pair, the
    device's busy share over one warm flush, and the launches of K2 and
-   K4 over a flush; then a 512-request mixed batch with two bad shares
+   K3 over a flush; then a 512-request mixed batch with two bad shares
    and one forged non-subgroup point, whose verdicts must equal the host
    ``BatchedBackend``/``EagerBackend``.
 
@@ -81,6 +86,63 @@ FQ_MUL_IMAD = 12 * 12 * 2 + 12 + 12 * 12 * 2  # 588
 G1_DBL, G1_ADD, G1_EQ = 7, 16, 8  # 5 sqr + 2 mul; 4 sqr + 12 mul; 2 sqr + 6 mul
 G2_DBL, G2_ADD, G2_EQ = 5 * 2 + 2 * 3, 4 * 2 + 12 * 3, 2 * 2 + 6 * 3
 PSI = 2 * 3  # two Fq2 products
+# Fq products of one K3 thread as the kernels run them (csrc/pair.cu;
+# tests/test_torch_pair_host.py counts them on the host build of the same
+# code): a pair_miller thread, with both affine inversions and the limb
+# conversions, or one whose pair has an identity side; a pair_final
+# thread's final exponentiation, reading one Miller value, and one Fq12
+# product; the Frobenius constants each block of pair_final converts.
+# These are the kernels' serial chains, which explain their times; the
+# bounds count the work below instead.
+MILLER_PRODUCTS, MILLER_IDENTITY_PRODUCTS = 10_441, 21
+FINAL_EXP_PRODUCTS, FQ12_READ_PRODUCTS, FQ12_MUL_PRODUCTS = 22_857, 12, 108
+GAMMA_PRODUCTS, PAIR_BLOCK = 60, 32
+# The least work of the pair check, as (Fq products, Fq squares).  An Fq
+# square needs 456 multiply-adds: its 66 cross products once (doubled by
+# a shift), 12 squares, then the 300 of the reduction.  Fq2 (Karatsuba):
+# a product 3 products, a square 2 ((a+b)(a-b) and ab), a product by an
+# Fq value 2.  Fq12 over the Fq6 tower (Beuchat et al., "High-speed
+# software implementation of the optimal ate pairing over Barreto-Naehrig
+# curves", 2010), in Fq2 products: a product 18, a square 12, a product
+# by a line (Fq2 coefficients at w^0, w^2, w^3) 13, an inverse 2 Fq6
+# squares (2 products and 3 squares each), 2 Fq6 products (6 each) and
+# an Fq6 inverse (9 products, 3 squares and an Fq2 inverse: 2 Fq squares,
+# 2 Fq products, one Fq inverse);
+# a square in the cyclotomic subgroup 9 Fq2 squares (Granger and Scott,
+# "Faster squaring in the cyclotomic subgroup of sixth degree
+# extensions", 2010); a Frobenius map 5 Fq2 coefficients by a constant in
+# Fq (p^2) or Fq2 (p).  An Fq inverse by Fermat needs at least 380
+# squares (P - 2 has 381 bits), and one inverse serves a whole launch
+# (Montgomery's trick: 3 products per further value).
+FQ_SQR_IMAD = 12 * 11 + 12 * 2 + 12 + 12 * 12 * 2  # 456
+FQ2_MUL, FQ2_SQR, FQ2_BY_FQ = 3, 2, 2
+FQ12_MUL, FQ12_SQR, FQ12_LINE, FQ12_CYC_SQR = 18 * 3, 12 * 3, 13 * 3, 9 * FQ2_SQR
+FQ12_INV = (2 * (2 * FQ2_MUL + 3 * FQ2_SQR) + 2 * 6 * FQ2_MUL + 9 * FQ2_MUL + 3 * FQ2_SQR
+            + 2)  # and 2 Fq squares and one Fq inverse
+FROB_P, FROB_P2 = 5 * FQ2_MUL, 5 * FQ2_BY_FQ
+INV_SQUARES = 380
+# The Miller loop's own step formulas (crypto/device/pairing.py
+# miller_loop, whose line scaling fixes the Miller values): a doubling 5
+# Fq2 products, 6 squares and 2 products by P's coordinates; an addition
+# 10, 3 and 2 (Z3 = 2 H Z reuses H Z).  f starts at 1, so of the 63
+# doublings and 5 additions the first square and line product are free.
+DBL_STEP = 5 * FQ2_MUL + 6 * FQ2_SQR + 2 * FQ2_BY_FQ
+ADD_STEP = 10 * FQ2_MUL + 3 * FQ2_SQR + 2 * FQ2_BY_FQ
+MILLER_NEED = 62 * FQ12_SQR + 67 * FQ12_LINE + 63 * DBL_STEP + 5 * ADD_STEP
+# Jacobian to affine: G1 3 products and a square; G2 the norm's 2
+# squares, 2 products by its inverse, then a square and 3 products of Fq2.
+AFFINE_NEED = (3 + 2 + FQ2_SQR + 3 * FQ2_MUL, 1 + 2)
+# f^(3 (p^12 - 1) / r) as the kernel's chain (pairing.cuh final_exp):
+# the easy part an inverse, 2 products and a p^2 map; the hard part 5
+# powers by |x| (63 cyclotomic squares and 5 products each), 7 products,
+# a p and a p^2 map, and the square of m.
+POW_X = 63 * FQ12_CYC_SQR + 5 * FQ12_MUL
+FINAL_EXP_NEED = (FQ12_INV + 2 * FQ12_MUL + FROB_P2 + 5 * POW_X + 7 * FQ12_MUL + FROB_P
+                  + FROB_P2 + FQ12_CYC_SQR)
+# The RS product is a GF(2) bit product: bits fit int8 and its sums (at
+# most 8k <= 2040) an int32 accumulator, so its least time counts its
+# multiply-adds at the int8 tensor-core peak (H100 SXM data sheet, dense).
+INT8_OPS_PER_S = 1.979e15
 
 
 def log(msg: str) -> None:
@@ -187,6 +249,14 @@ def phase_kernels(card: str, leaf_shape) -> list:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }]
+
+
+def free_mib() -> float:
+    """The card's free memory after the queued work, MiB
+    (``cudaMemGetInfo``): a kernel's first launch lowers it by the local
+    memory CUDA reserves for its stack frame."""
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0] / 2**20
 
 
 def bound(n_bytes: float, n_imad: float) -> tuple:
@@ -318,11 +388,16 @@ def phase_scan(card: str, firehose: list, mixed: list) -> list:
 
     be = TorchBackend(device="cuda")
     chunk = [firehose[: be.chunk]]
+    inp, _ = be._scan_prep(chunk)
+    before = free_mib()
+    dscan.scan_stage_kernel(inp)
+    log(f"device free memory at the first K2 launches: {before:.0f} MiB before, "
+        f"{free_mib():.0f} MiB after (the drop is mostly local memory for their stack "
+        f"frames)  [{card}]")
     err = _check_scan(be, chunk, "one firehose chunk", [True], card)
     wf = [r for r in mixed if request_well_formed(be.suite, r, subgroup=False)]
     err += _check_scan(be, [wf], "the mixed-512 batch (forged point in it)", [False], card)
 
-    inp, _ = be._scan_prep(chunk)
     args, _ = be._scan_prep(chunk, kernel=False)
     g1_pts, g1_bits, _, seg, _, g2_pts, bits_s, bits_q, _, g2_sub, _, _ = args
     sub_ok = torch.ones((1,), dtype=torch.int32, device="cuda")
@@ -369,6 +444,164 @@ def phase_scan(card: str, firehose: list, mixed: list) -> list:
                 "bound_by": bound_by, "library_ms": None,
             })
     log(sass_summary("scan", "scan kernels"))
+    return out
+
+
+def _pair_work(lhs, rhs, pair_sub, n_sub: int) -> dict:
+    """Bytes and least multiply-adds of each K3 kernel's function for
+    these pairs, and the longest thread's Fq products as the kernel runs
+    them (its serial chain).  A pair with an identity side needs no work
+    (its value is 1); a subset of c pairs multiplies c - 1 Miller values;
+    each launch shares one Fermat inverse among its values."""
+    skip = (lhs[3] | rhs[3]).cpu().tolist()
+    counts = np.bincount(pair_sub, minlength=n_sub).tolist()
+    n, live, fq12_bytes = len(skip), skip.count(False), 12 * 36 * 8
+
+    def imad(products: int, squares: int, inverses: int) -> int:
+        products += 3 * max(inverses - 1, 0)
+        squares += INV_SQUARES if inverses else 0
+        return products * FQ_MUL_IMAD + squares * FQ_SQR_IMAD
+
+    miller_need = imad(live * (MILLER_NEED + AFFINE_NEED[0]), live * AFFINE_NEED[1], 2 * live)
+    final_need = imad(sum(FINAL_EXP_NEED + FQ12_MUL * (c - 1) for c in counts if c),
+                      2 * sum(1 for c in counts if c), sum(1 for c in counts if c))
+    miller_chain = MILLER_IDENTITY_PRODUCTS if all(skip) else MILLER_PRODUCTS
+    final_chain = FINAL_EXP_PRODUCTS + FQ12_READ_PRODUCTS * max(counts) + FQ12_MUL_PRODUCTS * max(
+        max(counts) - 1, 0)
+    return {
+        "pair_miller": (n * (3 * 36 * 8 + 8 + 3 * 72 * 8 + 8 + fq12_bytes), miller_need,
+                        miller_chain),
+        "pair_final": (n * fq12_bytes + (n_sub + 1 + n + n_sub) * 4 + 30 * 72 * 8, final_need,
+                       final_chain),
+    }
+
+
+def _bisection_levels(be, mixed: list) -> list:
+    """The subsets TorchBackend's bisection checks in one flush of the
+    mixed batch, level by level, as request indices (recorded from
+    ``_aggregate_ok_many``, so they follow whatever halving ``_bisect``
+    does)."""
+    seen = []
+    check = be._aggregate_ok_many
+
+    def record(subsets):
+        seen.append([list(s) for s in subsets])
+        return check(subsets)
+
+    be._aggregate_ok_many = record
+    try:
+        be.verify_batch(mixed)
+    finally:
+        del be._aggregate_ok_many
+    index = {id(r): i for i, r in enumerate(mixed)}
+    return [[[index[id(r)] for r in s] for s in level] for level in seen]
+
+
+def _check_pair(lhs, rhs, pair_sub, n_sub: int, what: str, card: str):
+    """K3 against the plain pair stage on the same pairs, on the card:
+    verdicts equal, Miller values equal as canonical Fq12."""
+    from hbbft_tpu_torch.crypto.device import backend as dbackend
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import pairing as dpairing
+
+    fs = dpair.miller_values_kernel(lhs, rhs)
+    got = dpair.pair_stage_kernel(lhs, rhs, pair_sub, n_sub)
+    want_fs = dpairing.miller_values(lhs, rhs)
+    want = dbackend.pair_stage_plain(lhs, rhs, pair_sub, n_sub)
+    torch.cuda.synchronize()
+    if got.tolist() != want.tolist():
+        raise AssertionError(f"pair kernels at {what}: verdicts {got.tolist()} != plain "
+                             f"{want.tolist()}")
+    bad = sum(x != y for x, y in zip(canonical(fs), canonical(want_fs)))
+    if bad:
+        raise AssertionError(f"pair_miller at {what}: {bad} Fq values != plain miller_values")
+    if int(fs.min()) < 0 or int(fs.max()) >= 2048:
+        raise AssertionError(f"pair_miller at {what}: output limbs are not strict")
+    log(f"pair kernels at {what} ({fs.shape[0]} pairs, {n_sub} subsets): verdicts "
+        f"{got.tolist()} and Miller values == plain pair stage  [{card}]")
+    return got, bad
+
+
+def phase_pair(card: str, firehose: list, mixed: list, bad: list) -> list:
+    """K3: the pair stage held against the plain one on the firehose's
+    combined pairs (5 chunks, one subset) and on the mixed-512 bisection
+    levels of two- and one-request subsets; each kernel timed at the
+    firehose pairs against its plain counterpart."""
+    from hbbft_tpu_torch.crypto.device import backend as dbackend
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import pairing as dpairing
+    from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+
+    be = TorchBackend(device="cuda")
+    chunks = [firehose[s: s + be.chunk] for s in range(0, len(firehose), be.chunk)]
+    scans = [be._scan([c]) for c in chunks]
+    lhs = tuple(torch.cat([s[1][c] for s in scans]) for c in range(4))
+    rhs = tuple(torch.cat([s[2][c] for s in scans]) for c in range(4))
+    pair_sub = [0] * lhs[3].shape[0]
+    free = [free_mib()]
+    dpair.miller_values_kernel(lhs, rhs)
+    free.append(free_mib())
+    dpair.pair_stage_kernel(lhs, rhs, pair_sub, 1)
+    free.append(free_mib())
+    log(f"device free memory at the first K3 launches: {free[0]:.0f} MiB before, {free[1]:.0f} "
+        f"after pair_miller, {free[2]:.0f} after pair_final (the drops are mostly local memory "
+        f"for stack frames larger than the earlier kernels')  [{card}]")
+    got, err = _check_pair(lhs, rhs, pair_sub, 1, f"the firehose's {len(chunks)} chunks", card)
+    if got.tolist() != [True]:
+        raise AssertionError("pair kernels: the firehose's valid shares were rejected")
+
+    small = [lv for lv in _bisection_levels(be, mixed) if max(len(h) for h in lv) <= 2]
+    if not small:
+        raise AssertionError("the mixed-512 bisection never checked subsets of two or one")
+    for level in small:
+        sub_ok, llhs, lrhs, lsub = be._scan([[mixed[i] for i in h] for h in level])
+        lgot, lerr = _check_pair(llhs, lrhs, lsub, len(level),
+                                 f"a mixed-512 bisection level ({len(level)} halves of "
+                                 f"{sorted({len(h) for h in level})} requests)", card)
+        want = [not (set(h) & set(bad)) for h in level]
+        if (lgot & sub_ok).tolist() != want:
+            raise AssertionError(f"bisection level: verdicts {(lgot & sub_ok).tolist()} != {want}")
+        err += lerr
+
+    offsets, members = dpair.subset_members(pair_sub, 1)
+    off_t = torch.as_tensor(offsets, device="cuda")
+    mem_t = torch.as_tensor(members, device="cuda")
+    fs = dpair.miller_values_kernel(lhs, rhs)
+    with torch.inference_mode():
+        # pair_final's plain counterpart is the plain stage less its
+        # Miller values: the ordered products and the final exponentiation.
+        plain_miller_ms = cuda_time_ms(lambda: dpairing.miller_values(lhs, rhs), 1)
+        plain_stage_ms = cuda_time_ms(
+            lambda: dbackend.pair_stage_plain(lhs, rhs, pair_sub, 1), 1)
+        timed = {
+            dpair.MILLER: (lambda: dpair.miller_values_kernel(lhs, rhs), plain_miller_ms),
+            dpair.FINAL: (lambda: dpair.final_kernel(fs, off_t, mem_t, 1),
+                          plain_stage_ms - plain_miller_ms),
+        }
+        work = _pair_work(lhs, rhs, pair_sub, 1)
+        out = []
+        for name in dpair.KERNELS:
+            kernel, plain_ms = timed[name]
+            ms = cuda_time_ms(kernel, 10)
+            n_bytes, n_imad, serial = work[name]
+            bound_ms, bound_by = bound(n_bytes, n_imad)
+            log(f"{name} at the firehose's {len(pair_sub)} pairs: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}; {n_imad} multiply-adds "
+                f"of the pair check, {n_bytes} bytes); the kernel's serial chain {serial} Fq "
+                f"products = {ms * 1e3 / serial:.3f} us per product  [{card}]")
+            out.append({
+                "name": name, "route": "cuda", "source": "hbbft_tpu_torch/csrc/pair.cu",
+                "replaces": "hbbft_tpu/crypto/tpu/backend.py:137", "launches": None,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+            })
+        stage_ms = cuda_time_ms(lambda: dpair.pair_stage_kernel(lhs, rhs, pair_sub, 1), 10)
+        level_ms = cuda_time_ms(
+            lambda: dpair.pair_stage_kernel(llhs, lrhs, lsub, len(level)), 5)
+    log(f"pair stage at the firehose's pairs: K3 {stage_ms:.3f} ms, plain {plain_stage_ms:.1f} ms; "
+        f"K3 at the last bisection level ({llhs[3].shape[0]} pairs, {len(level)} subsets) "
+        f"{level_ms:.3f} ms  [{card}]")
+    log(sass_summary("pair", "pair kernels"))
     return out
 
 
@@ -420,6 +653,36 @@ def phase_dataplane(card: str) -> dict:
     log(f"data plane N={n} k={k} 64000-byte values: {n}x{n} proofs verified; "
         f"keccak launches {launches.get('keccak_sha3_256', 0)}; first run {epoch_s:.3f} s, "
         f"median of 3 warm runs {statistics.median(times):.3f} s per epoch  [{card}]")
+
+    # Its two device stages alone: the RS bit product (K5) and the leaf and
+    # level hashing on the Keccak kernel (K6); the rest of an epoch is host
+    # packing and proof assembly.
+    from hbbft_tpu_torch.ops.device import keccak as K
+    from hbbft_tpu_torch.ops.device.dataplane import _pack, rs_shards, tree_levels
+    from hbbft_tpu_torch.ops.merkle import _depth
+
+    with torch.inference_mode():
+        data = torch.as_tensor(np.stack([_pack(v, k)[0] for v in values]), device="cuda")
+        shards = rs_shards(data, n)
+        rs_ms = cuda_time_ms(lambda: rs_shards(data, n), 10)
+        tree_ms = cuda_time_ms(lambda: tree_levels(shards, n), 10)
+    s = shards.shape[2]
+    size = 1 << _depth(n)
+    rs_bytes = len(values) * (k + n) * s
+    rs_ops = 2 * (8 * (n - k)) * (8 * k) * len(values) * s
+    rs_bound, rs_by = max((rs_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                          (rs_ops / INT8_OPS_PER_S * 1e3, "operations"))
+    leaf_blocks = (1 + s) // K.RATE + 1
+    perms = len(values) * (n * leaf_blocks + size - 1)
+    tree_bytes = len(values) * (n * s + (2 * size - 1) * 32)
+    tree_bound, tree_by = max((tree_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                              (perms * KECCAK_INT32_OPS_PER_PERM / INT32_OPS_PER_S * 1e3,
+                               "operations"))
+    log(f"data plane stages at N={n}: RS bit product (K5, plain matmul) {rs_ms:.4f} ms, bound "
+        f"{rs_bound:.4f} ms ({rs_by}; {rs_ops} int8 multiply-add ops, {rs_bytes} bytes); leaf and "
+        f"level hashing (K6, {1 + _depth(n)} Keccak launches) {tree_ms:.4f} ms, "
+        f"bound {tree_bound:.4f} ms ({tree_by}; {perms} permutations, {tree_bytes} bytes)  "
+        f"[{card}]")
     return launches
 
 
@@ -479,6 +742,7 @@ def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
     from hbbft_tpu_torch import build
     from hbbft_tpu_torch.crypto.backend import BatchedBackend, EagerBackend
     from hbbft_tpu_torch.crypto.device import fq
+    from hbbft_tpu_torch.crypto.device import pair as dpair
     from hbbft_tpu_torch.crypto.device import scan as dscan
     from hbbft_tpu_torch.crypto.device.backend import TorchBackend
 
@@ -536,7 +800,7 @@ def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
     launches = dict(build.LAUNCHES)
     if not all(warm):
         raise AssertionError("firehose (warm): a valid share was rejected")
-    missing = [k for k in (fq.KERNEL, *dscan.KERNELS) if launches.get(k, 0) == 0]
+    missing = [k for k in (*dscan.KERNELS, *dpair.KERNELS) if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"the flush launched no {missing}: launches {launches}")
     n_chunks = -(-len(reqs) // be.chunk)
@@ -596,8 +860,9 @@ def main() -> int:
     from hbbft_tpu_torch.crypto.bls import curve as oc
     from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
 
+    log(f"device free memory before any kernel: {free_mib():.0f} MiB")
     t0 = time.perf_counter()
-    build.build_all(["keccak", "fq", "scan"], verbose=True)
+    build.build_all(["keccak", "fq", "scan", "pair"], verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
     suite = BLSSuite()
@@ -610,6 +875,7 @@ def main() -> int:
     kernels = phase_kernels(card, leaf_shape=(104 * 104, 14))
     kernels.append(phase_field(card))
     kernels += phase_scan(card, firehose, mixed)
+    kernels += phase_pair(card, firehose, mixed, bad)
     launches = phase_dataplane(card)
     launches.update(phase_flush(card, suite, firehose, mixed, bad))
     for k in kernels:

@@ -19,9 +19,9 @@ failure — with the group algebra in PyTorch on ``device``:
 The reference bucketed every shape to a power of two only to bound XLA
 recompiles; PyTorch compiles nothing, so the port runs at exact sizes.
 On a CUDA device the scan stage is the hand-written K2 kernels
-(:mod:`.scan`, ``csrc/scan.cu``) and the field products under the pair
-stage are the K4 kernel (``csrc/fq.cu``); on the CPU both stages are the
-plain versions here.  The pair stage's own kernel is queued (K3).
+(:mod:`.scan`, ``csrc/scan.cu``) and the pair stage the K3 kernels
+(:mod:`.pair`, ``csrc/pair.cu``); on the CPU both stages are the plain
+versions here (:func:`scan_stage`, :func:`pair_stage_plain`).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from hbbft_tpu_torch.crypto.bls import curve as ocurve
 from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
 from hbbft_tpu_torch.crypto.device import curve as dcurve
 from hbbft_tpu_torch.crypto.device import fq
+from hbbft_tpu_torch.crypto.device import pair as dpair
 from hbbft_tpu_torch.crypto.device import pairing as dpairing
 from hbbft_tpu_torch.crypto.device import scan as dscan
 from hbbft_tpu_torch.device import DeviceLike, resolve
@@ -110,6 +111,17 @@ def _masked_sums(ops: dcurve.Ops, pts: dcurve.Point, mask: torch.Tensor) -> dcur
 
 
 def pair_stage(
+    lhs: dcurve.Point, rhs: dcurve.Point, pair_sub: Sequence[int], n_sub: int
+) -> torch.Tensor:
+    """(n_sub,) verdicts "the product of the subset's pairings is 1" —
+    the K3 kernels (:func:`.pair.pair_stage_kernel`) for CUDA tensors,
+    the plain :func:`pair_stage_plain` for CPU tensors; no fallback."""
+    if lhs[0].device.type == "cuda":
+        return dpair.pair_stage_kernel(lhs, rhs, pair_sub, n_sub)
+    return pair_stage_plain(lhs, rhs, pair_sub, n_sub)
+
+
+def pair_stage_plain(
     lhs: dcurve.Point, rhs: dcurve.Point, pair_sub: Sequence[int], n_sub: int
 ) -> torch.Tensor:
     """Batched Miller loop over every pair, the per-subset products, and
@@ -361,11 +373,14 @@ class TorchBackend(CryptoBackend):
         The reference recurses depth-first, one aggregate check (a scan
         and a pair stage) per half.  Here every half of one bisection
         level is checked in one scan and one pair stage: the same halves,
-        the same coefficients and the same verdicts.  The plain stages
-        cost about the same at any row count (launch-bound), so this pays
-        one stage per level instead of one per half; the two orders are
-        timed against each other by ``benchmarks_torch/bisect_ab.py``.
-        Single failing requests go to :class:`EagerBackend`.
+        the same coefficients and the same verdicts.  Each stage has a
+        floor whatever its rows (a K3 pair stage is one thread's chain,
+        ~63 ms on an H100 at one subset or six), so this pays one stage
+        per level instead of one per half.  ``benchmarks_torch/bisect_ab.py``
+        times the two orders against each other: on the mixed-512 batch
+        with the K2 and K3 kernels, level-wide took 1.58 s over 10
+        stages and depth-first 4.83 s over 49 (NVIDIA H100 80GB HBM3,
+        700 W).  Single failing requests go to :class:`EagerBackend`.
         """
         failing = [idxs]
         while failing:

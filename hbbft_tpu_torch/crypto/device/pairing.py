@@ -17,8 +17,10 @@ Counterpart of ``hbbft_tpu/crypto/tpu/pairing.py`` (same math):
   cyclotomic subgroup.
 
 Everything is batched over a leading "pairs" axis; the pairing-product
-check shares one final exponentiation across all pairs.  Plain PyTorch
-in this slice: its hand-written kernel is queued (K3).
+check shares one final exponentiation across all pairs.  Plain PyTorch:
+the CPU path, and the reference the hand-written K3 kernels
+(``csrc/pair.cu`` on ``csrc/fq12.cuh`` and ``csrc/pairing.cuh``) are held
+against.
 """
 
 from __future__ import annotations

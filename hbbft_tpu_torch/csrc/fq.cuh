@@ -200,11 +200,16 @@ FQ_CALL Fq mont_mul(Fq a, Fq b) {
 
 #else  // portable path: the same rows on 64-bit integers
 
+// Products since the host check last read it: the host check counts the
+// Fq products of a request, which chip_smoke.py's bounds assume.
+inline uint64_t host_products = 0;
+
 // The operands are references here: GCC 12 at -O1/-O2 drops the caller's
 // stores into a 48-byte struct passed by value to this function (its
 // mod/ref analysis marks the argument unread), so by-value operands gave
 // wrong products on the host.
 FQ_CALL Fq mont_mul(const Fq& a, const Fq& b) {
+  ++host_products;
   const Fq p = fq_p();
   uint32_t t[kWords + 2] = {0};
   for (int i = 0; i < kWords; ++i) {
@@ -278,12 +283,14 @@ FQ_HD Fq neg(const Fq& a) { return sub(fq_zero(), a); }
 
 FQ_HD Fq dbl(const Fq& a) { return add(a, a); }
 
-// k * a for the small constants the curve formulas use (2, 3, 8).
+// k * a for the small constants the curve and line formulas use (2, 3,
+// 4, 8).
 template <int K>
 FQ_HD Fq small_mul(const Fq& a) {
-  static_assert(K == 2 || K == 3 || K == 8, "small_mul factor");
+  static_assert(K == 2 || K == 3 || K == 4 || K == 8, "small_mul factor");
   if (K == 2) return dbl(a);
   if (K == 3) return add(dbl(a), a);
+  if (K == 4) return dbl(dbl(a));
   return dbl(dbl(dbl(a)));
 }
 
@@ -330,6 +337,45 @@ FQ_HD Fq2 mul_by_xi(const Fq2& a) { return Fq2{sub(a.c0, a.c1), add(a.c0, a.c1)}
 FQ_HD bool is_zero(const Fq2& a) { return is_zero(a.c0) && is_zero(a.c1); }
 
 FQ_HD Fq mul(const Fq& a, const Fq& b) { return mont_mul(a, b); }
+
+// Times a base-field scalar (crypto/device/fq2.py mul_fq): two products.
+FQ_HD Fq2 mul_fq(const Fq2& a, const Fq& s) { return Fq2{mont_mul(a.c0, s), mont_mul(a.c1, s)}; }
+
+// ---------------------------------------------------------------------------
+// Inversion (crypto/device/fq.py pow_fixed and inv, fq2.py inv)
+// ---------------------------------------------------------------------------
+
+// a^(P-2), which is a^-1 for a != 0 and 0 for a = 0 (Fermat), in the
+// kernel's Montgomery form: 4-bit windows MSB-first as pow_fixed, a table
+// of a^0 .. a^15 (14 products), then per window four squarings and at
+// most one product: 485 products in all.  The exponent is fixed, so the
+// branch on a window never depends on the data.
+FQ_CALL Fq inv(const Fq& a) {
+  Fq e = fq_p();
+  e.w[0] -= 2u;  // P - 2; the low word of P is above 2
+  Fq table[16];
+  table[0] = fq_one();
+  table[1] = a;
+  for (int k = 2; k < 16; ++k) table[k] = mont_mul(table[k - 1], a);
+  constexpr int kWindows = kWords * 8;  // 4-bit windows of 384 bits
+  Fq acc = table[e.w[kWords - 1] >> 28];  // the top window of P - 2 is 1
+  for (int win = kWindows - 2; win >= 0; --win) {
+    acc = sqr(acc);
+    acc = sqr(acc);
+    acc = sqr(acc);
+    acc = sqr(acc);
+    const uint32_t nib = (e.w[win >> 3] >> (4 * (win & 7))) & 15u;
+    if (nib != 0) acc = mont_mul(acc, table[nib]);
+  }
+  return acc;
+}
+
+// (a0 + a1 u)^-1 = (a0 - a1 u) / (a0^2 + a1^2): one Fq inversion; 0 maps
+// to 0.
+FQ_CALL Fq2 inv(const Fq2& a) {
+  const Fq ninv = inv(add(sqr(a.c0), sqr(a.c1)));
+  return Fq2{mont_mul(a.c0, ninv), neg(mont_mul(a.c1, ninv))};
+}
 
 // ---------------------------------------------------------------------------
 // The port's limb format at the kernel boundary (conversion in the header

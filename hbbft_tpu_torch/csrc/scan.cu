@@ -48,9 +48,6 @@ using fq::Fq;
 using fq::Fq2;
 
 constexpr int kThreads = 128;
-// Per-thread stack the point calls need (ptxas -v reports each frame); set
-// once, before the first launch, if the context's limit is lower.
-constexpr size_t kStackBytes = 16384;
 
 // Internal point records between the row and sum kernels: x, y, z words,
 // then the flag.
@@ -180,17 +177,6 @@ scan_sums(const uint32_t* __restrict__ pts, const int32_t* __restrict__ starts, 
   oinf[p] = acc.inf;
 }
 
-int ensure_stack() {
-  static bool done = false;
-  if (done) return 0;
-  size_t cur = 0;
-  cudaError_t rc = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
-  if (rc == cudaSuccess && cur < kStackBytes) rc = cudaDeviceSetLimit(cudaLimitStackSize, kStackBytes);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  done = true;
-  return 0;
-}
-
 unsigned blocks(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -203,7 +189,6 @@ unsigned blocks(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThre
 extern "C" int hbbft_scan_g1_rows(const void* x, const void* y, const void* z, const void* inf,
                                   const void* coeff, const void* chk, const void* row_sub,
                                   int n, void* scaled, void* sub_ok, void* stream) {
-  if (int rc = ensure_stack()) return rc;
   if (n <= 0) return 0;
   scan_g1_rows<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x), static_cast<const int64_t*>(y),
@@ -217,7 +202,6 @@ extern "C" int hbbft_scan_g1_rows(const void* x, const void* y, const void* z, c
 extern "C" int hbbft_scan_g2_rows(const void* x, const void* y, const void* z, const void* inf,
                                   const void* sq, const void* chk, const void* row_sub, int n,
                                   void* scaled, void* sub_ok, void* stream) {
-  if (int rc = ensure_stack()) return rc;
   if (n <= 0) return 0;
   scan_g2_rows<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x), static_cast<const int64_t*>(y),
@@ -234,7 +218,6 @@ extern "C" int hbbft_scan_g2_rows(const void* x, const void* y, const void* z, c
 template <class F>
 static int launch_sums(const void* pts, const void* starts, int npieces, void* out, void* ox,
                        void* oy, void* oz, void* oinf, void* stream) {
-  if (int rc = ensure_stack()) return rc;
   if (npieces <= 0) return 0;
   scan_sums<F><<<blocks(npieces), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(pts), static_cast<const int32_t*>(starts), npieces,

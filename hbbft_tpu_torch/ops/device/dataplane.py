@@ -13,6 +13,8 @@ shards).  Three device stages:
 2. leaf hashes for all V×N shards in one batched SHA3 call,
 3. each tree level for all values in one batched SHA3 call.
 
+Stage 1 is :func:`rs_shards`, stages 2 and 3 :func:`tree_levels`.
+
 Stages 2 and 3 run the hand-written Keccak kernel on a CUDA device: one
 launch for the leaves and one per level.  Bit-exact with the host path
 (:class:`~hbbft_tpu_torch.ops.merkle.MerkleTree`,
@@ -48,6 +50,42 @@ def _pack(value: bytes, k: int) -> Tuple[np.ndarray, int]:
     )
 
 
+def rs_shards(data: torch.Tensor, n: int) -> torch.Tensor:
+    """Stage 1: (V, k, s) uint8 data shards -> (V, n, s) data and parity
+    shards, every value's parity in one bit product (K5)."""
+    V, k, shard_len = data.shape
+    flat = data.transpose(0, 1).reshape(k, V * shard_len)
+    parity = dgf.gf2_matmul(dgf._enc_bits(k, n), flat).reshape(n - k, V, shard_len)
+    return torch.cat([data, parity.transpose(0, 1)], dim=1)
+
+
+def tree_levels(shards_vn: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """Stages 2 and 3: the leaf hashes H(0x00 || shard) of all V*n shards
+    in one call, then one call per tree level (K6, on the Keccak kernel):
+    [(V, width, 32) uint8] from the leaves up to the roots."""
+    V, _, shard_len = shards_vn.shape
+    dev = shards_vn.device
+    size = 1 << _depth(n)
+    leaves_in = torch.zeros((V * n, 1 + shard_len), dtype=torch.uint8, device=dev)
+    leaves_in[:, 1:] = shards_vn.reshape(V * n, shard_len)
+    leaf_hashes = dk.sha3_256_batch(leaves_in).reshape(V, n, 32)
+    if size > n:
+        pad = torch.as_tensor(
+            np.frombuffer(hashlib.sha3_256(b"\x00").digest(), dtype=np.uint8).copy(),
+            device=dev,
+        )
+        leaf_hashes = torch.cat(
+            [leaf_hashes, pad.expand(V, size - n, 32)], dim=1
+        )
+    levels = [leaf_hashes]  # (V, width, 32)
+    width = size
+    while width > 1:
+        cur = levels[-1].reshape(V * (width // 2), 64)
+        levels.append(dk.merkle_level(0x01, cur).reshape(V, width // 2, 32))
+        width //= 2
+    return levels
+
+
 @torch.inference_mode()
 def encode_and_prove(
     values: Sequence[bytes], k: int, n: int, device: DeviceLike = None
@@ -67,34 +105,9 @@ def encode_and_prove(
     if any(s != shard_len for _, s in packs):
         raise ValueError("mixed shard lengths")
     V = len(values)
-
-    # 1. One bit product for every value's parity.
     data = torch.as_tensor(np.stack([p for p, _ in packs]), device=dev)  # (V, k, s)
-    flat = data.transpose(0, 1).reshape(k, V * shard_len)
-    parity = dgf.gf2_matmul(dgf._enc_bits(k, n), flat).reshape(n - k, V, shard_len)
-    shards_vn = torch.cat([data, parity.transpose(0, 1)], dim=1)  # (V, n, s)
-
-    # 2. Leaf hashes: H(0x00 || shard) for all V*n shards at once.
-    size = 1 << _depth(n)
-    leaves_in = torch.zeros((V * n, 1 + shard_len), dtype=torch.uint8, device=dev)
-    leaves_in[:, 1:] = shards_vn.reshape(V * n, shard_len)
-    leaf_hashes = dk.sha3_256_batch(leaves_in).reshape(V, n, 32)
-    if size > n:
-        pad = torch.as_tensor(
-            np.frombuffer(hashlib.sha3_256(b"\x00").digest(), dtype=np.uint8).copy(),
-            device=dev,
-        )
-        leaf_hashes = torch.cat(
-            [leaf_hashes, pad.expand(V, size - n, 32)], dim=1
-        )
-
-    # 3. Tree levels, one batched call per level.
-    levels = [leaf_hashes]  # (V, width, 32)
-    width = size
-    while width > 1:
-        cur = levels[-1].reshape(V * (width // 2), 64)
-        levels.append(dk.merkle_level(0x01, cur).reshape(V, width // 2, 32))
-        width //= 2
+    shards_vn = rs_shards(data, n)
+    levels = tree_levels(shards_vn, n)
 
     # One copy back to the host; proofs are assembled there.
     host_levels = [lv.cpu().numpy() for lv in levels]

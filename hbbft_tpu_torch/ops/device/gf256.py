@@ -13,8 +13,8 @@ bytes) and applies the same product to the bulk data.
 CUDA has no integer ``torch.matmul``, so the product runs in float32 with
 TF32 off: every entry is 0 or 1 and every sum is at most 8k <= 2040 <
 2^24, so float32 is exact.  (bf16 is not: its sums round above 256.)
-This product is a plain matrix product outside any kernel; its hand-
-written kernel is queued (K5).
+This product is a plain matrix product outside any kernel, as the
+reference leaves its own to XLA outside any Pallas kernel (K5).
 """
 
 from __future__ import annotations

@@ -23,6 +23,8 @@ from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
 from hbbft_tpu_torch.crypto.device import backend as dbackend
 from hbbft_tpu_torch.crypto.device import curve as dc
 from hbbft_tpu_torch.crypto.device import fq
+from hbbft_tpu_torch.crypto.device import pair as dpair
+from hbbft_tpu_torch.crypto.device import pairing as dpairing
 from hbbft_tpu_torch.crypto.device import scan as dscan
 from hbbft_tpu_torch.crypto.device.backend import TorchBackend
 from hbbft_tpu_torch.ops.device import dataplane as dp
@@ -124,6 +126,27 @@ def test_scan_kernel_matches_plain_scan_stage(cuda):
     assert _same_points(rhs, want_rhs, 2)
 
 
+def test_pair_kernels_match_plain_pair_stage(cuda):
+    """K3 against the plain pair stage on the card, on the pairs of the
+    scan kernels: three subsets (one False, one with the forged point),
+    then subsets of one and two requests as the bisection makes them."""
+    suite = BLSSuite()
+    be = TorchBackend(suite, device=cuda)
+    subsets = _subsets(suite)
+    for subs in (subsets, [subsets[0][:1], subsets[1][:2], subsets[2]]):
+        _, lhs, rhs, pair_sub = be._scan(subs)
+        build.reset_launches()
+        fs = dpair.miller_values_kernel(lhs, rhs)
+        got = dpair.pair_stage_kernel(lhs, rhs, pair_sub, len(subs))
+        torch.cuda.synchronize()
+        assert {k: build.LAUNCHES[k] for k in dpair.KERNELS} == {dpair.MILLER: 2, dpair.FINAL: 1}
+        assert int(fs.min()) >= 0 and int(fs.max()) < 2048
+        assert _canonical(fs) == _canonical(dpairing.miller_values(lhs, rhs))
+        want = dbackend.pair_stage_plain(lhs, rhs, pair_sub, len(subs))
+        assert got.tolist() == want.tolist()
+        assert got[0] and not got[2]
+
+
 def test_torch_backend_on_card_matches_batched(cuda):
     suite = BLSSuite()
     reqs = [r for s in _subsets(suite) for r in s]
@@ -131,5 +154,4 @@ def test_torch_backend_on_card_matches_batched(cuda):
     got = TorchBackend(suite, device=cuda, chunk=16).verify_batch(reqs)
     assert got == BatchedBackend(suite).verify_batch(reqs)
     assert got.count(False) == 2
-    assert build.LAUNCHES[fq.KERNEL] > 0
-    assert all(build.LAUNCHES[k] > 0 for k in dscan.KERNELS)
+    assert all(build.LAUNCHES[k] > 0 for k in dpair.KERNELS + dscan.KERNELS)

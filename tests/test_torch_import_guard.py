@@ -36,6 +36,7 @@ def _run(code: str) -> subprocess.CompletedProcess:
 def test_import_loads_no_jax_and_no_reference_module():
     mods = _port_modules()
     assert "hbbft_tpu_torch.crypto.device.backend" in mods
+    assert "hbbft_tpu_torch.crypto.device.pair" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,0 +1,288 @@
+"""The pair stage's kernel arithmetic (``csrc/fq12.cuh``, ``csrc/pairing.cuh``
+and the Fq/Fq2 inverses of ``csrc/fq.cuh``) on the CPU, and the host layout
+of ``crypto/device/pair.py``.
+
+``csrc/host_check.cc`` includes the kernels' headers and is built with the
+host C++ compiler (as in ``tests/test_torch_kernel_host.py``); its ``ML``
+and ``PF`` requests run the very functions each ``pair_miller`` and
+``pair_final`` thread runs.  They are held against Python integers, the
+BLS oracle (``crypto/bls/pairing.py``), the port's plain pairing
+(``crypto/device/pairing.py``, ``backend.pair_stage_plain``) and the JAX
+package's ``pairing_product_is_one``.  On the card
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernels against
+the plain stage.
+
+Tolerance: exact.  Field and Fq12 values are compared as canonical values
+mod P (coefficient by coefficient in the w basis), verdicts as booleans,
+and every kernel output must be in the port's strict format.
+"""
+
+import random
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from hbbft_tpu.crypto.bls import curve as oc
+from hbbft_tpu.crypto.bls import fields as OF
+from hbbft_tpu.crypto.bls import pairing as opair
+from hbbft_tpu.crypto.tpu import curve as jcurve
+from hbbft_tpu.crypto.tpu import pairing as jpairing
+from hbbft_tpu_torch import build
+from hbbft_tpu_torch.crypto.device import backend as dbackend
+from hbbft_tpu_torch.crypto.device import curve as dc
+from hbbft_tpu_torch.crypto.device import fq, fq2
+from hbbft_tpu_torch.crypto.device import pair as dpair
+from hbbft_tpu_torch.crypto.device import pairing as tp
+from test_torch_kernel_host import _ints, _loose_limbs, _strict_value, host_check  # noqa: F401
+from torch_low_priority import low_priority
+
+# Small tensors: intra-op threads only contend with the other test workers.
+torch.set_num_threads(1)
+
+P = OF.P
+NL = fq.NL
+CPU = torch.device("cpu")
+
+
+def _fq12_limbs(a) -> np.ndarray:
+    return np.stack([fq2.to_mont_np(c) for c in a])
+
+
+def _fq12_value(limbs):
+    """Canonical Fq12 of (6, 2, 36) limbs, asserting the strict format."""
+    arr = np.asarray(limbs).reshape(6, 2, NL)
+    for i in range(6):
+        for c in range(2):
+            _strict_value(arr[i, c])
+    return tuple(fq2.from_mont_int(arr[i]) for i in range(6))
+
+
+def _plain_value(t: torch.Tensor):
+    arr = t.numpy()
+    return tuple(fq2.from_mont_int(arr[i]) for i in range(6))
+
+
+def _gam_line() -> str:
+    return f"GAM {_ints(dpair.gamma_limbs(CPU))}"
+
+
+def _rand_fq12(rng):
+    return tuple((rng.randrange(P), rng.randrange(P)) for _ in range(6))
+
+
+def _cube(a):
+    return OF.fq12_mul(OF.fq12_sqr(a), a)
+
+
+def test_inverses_match_python_ints(host_check):
+    """The Fermat inverse on Montgomery limbs w (x = w / R): the output is
+    x^-1 R = R^2 / w, and 0 for w = 0 mod P; inputs in loose limbs up to
+    the top of the port's range."""
+    rng = random.Random(31)
+    vals = [0, 1, 2, P - 1, P, 2 * P, (1 << 386) - 1] + [rng.randrange(1 << 386)
+                                                        for _ in range(20)]
+    out = host_check([f"I {_ints(_loose_limbs(rng, w))}" for w in vals])
+    for w, row in zip(vals, out):
+        assert _strict_value(row) == pow(w, P - 2, P) * fq.R * fq.R % P, w
+    els = [((0, 0), 5), ((1, 0), 7), ((0, 1), P - 1)] + [
+        ((rng.randrange(P), rng.randrange(P)), rng.randrange(P)) for _ in range(20)]
+    out = host_check([f"I2 {_ints(fq2.to_mont_np(a))} {_ints(fq.to_mont_np(s))}"
+                      for a, s in els])
+    for (a, s), row in zip(els, out):
+        inv = fq2.from_mont_int(np.asarray(row[:2 * NL]).reshape(2, NL))
+        prod = fq2.from_mont_int(np.asarray(row[2 * NL:]).reshape(2, NL))
+        assert inv == (OF.fq2_inv(a) if a != (0, 0) else (0, 0))
+        assert prod == (a[0] * s % P, a[1] * s % P)
+
+
+def test_fq12_ops_match_oracle_and_plain(host_check):
+    rng = random.Random(12)
+    cases = [(_rand_fq12(rng), _rand_fq12(rng)) for _ in range(3)]
+    cases.append((OF.FQ12_ONE, _rand_fq12(rng)))
+    lines = [_gam_line()] + [f"F12 {_ints(_fq12_limbs(a))} {_ints(_fq12_limbs(b))}"
+                             for a, b in cases]
+    out = host_check(lines)[1:]
+    zero = (0, 0)
+    for (a, b), row in zip(cases, out):
+        got = [_fq12_value(row[432 * k: 432 * (k + 1)]) for k in range(11)]
+        sparse = (b[0], zero, b[2], b[3], zero, zero)
+        want = [OF.fq12_mul(a, b), OF.fq12_sqr(a), OF.fq12_mul(a, sparse),
+                OF.fq12_conjugate(a)]
+        want += [OF.fq12_frobenius(a, k) for k in dpair.GAMMA_KS]
+        want += [OF.fq12_inv(a), OF.fq12_pow(a, -OF.BLS_X)]
+        assert got == want
+        assert row[-1] == (a == OF.FQ12_ONE)
+    # conj without gamma constants equals the plain frobenius(a, 6).
+    a = cases[0][0]
+    assert _fq12_value(out[0][432 * 3: 432 * 4]) == _plain_value(
+        tp.frobenius(torch.as_tensor(_fq12_limbs(a)), 6))
+
+
+def _bls_pairs():
+    """The pairs of ``test_torch_pairing.py::test_pairing_product_vs_jax_and_oracle``:
+    the BLS verification equation e(g1, sig) e(-pk, H(m)) == 1, valid
+    and corrupted, and the same with both G1 points the identity."""
+    rng = np.random.default_rng(42)
+    sk = int.from_bytes(rng.bytes(32), "big") % OF.R
+    pk = oc.jac_mul(oc.FQ_OPS, oc.G1_GEN, sk)
+    h = oc.hash_to_g2(b"device pairing test")
+    sig = oc.jac_mul(oc.FQ2_OPS, h, sk)
+    badsig = oc.jac_mul(oc.FQ2_OPS, h, (sk + 1) % OF.R)
+    g1 = [oc.G1_GEN, oc.jac_neg(oc.FQ_OPS, pk)]
+    ident = [(1, 1, 0), (1, 1, 0)]
+    return [(g1, [sig, h], True), (g1, [badsig, h], False), (ident, [badsig, h], True)]
+
+
+def _stage_inputs():
+    """The three cases as one pair stage: subsets 0, 1, 2 are the cases,
+    subset 3 a single non-identity pair (False) and subset 4 a single
+    pair with the G2 identity (True)."""
+    cases = _bls_pairs()
+    g1s, g2s, pair_sub = [], [], []
+    for s, (a, b, _) in enumerate(cases):
+        g1s += a
+        g2s += b
+        pair_sub += [s, s]
+    g1s += [oc.G1_GEN, oc.G1_GEN]
+    g2s += [cases[0][1][0], ((1, 0), (1, 0), (0, 0))]
+    pair_sub += [3, 4]
+    # Interleave so that a subset's pairs are not adjacent: the CSR list
+    # must keep each subset's own order.
+    order = [0, 2, 4, 1, 3, 5, 6, 7]
+    return ([g1s[i] for i in order], [g2s[i] for i in order], [pair_sub[i] for i in order],
+            [True, False, True, False, True])
+
+
+def _ml_line(g1, g2) -> str:
+    x, y, z, inf = dc.g1_to_dev([g1])
+    X, Y, Z, INF = dc.g2_to_dev([g2])
+    return (f"ML {_ints(x)} {_ints(y)} {_ints(z)} {int(inf[0])} "
+            f"{_ints(X)} {_ints(Y)} {_ints(Z)} {int(INF[0])}")
+
+
+@pytest.fixture(scope="module")
+def stage(host_check):
+    """The stage's inputs, the host build's Miller values and the plain
+    version's (computed once for the module)."""
+    g1s, g2s, pair_sub, want = _stage_inputs()
+    kernel_fs = np.stack([np.asarray(r).reshape(6, 2, NL)
+                          for r in host_check([_ml_line(a, b) for a, b in zip(g1s, g2s)])])
+    lhs, rhs = dc.g1_to_dev(g1s), dc.g2_to_dev(g2s)
+    with torch.inference_mode():
+        plain_fs = low_priority(tp.miller_values)(lhs, rhs)
+    return g1s, g2s, pair_sub, want, lhs, rhs, kernel_fs, plain_fs
+
+
+@low_priority
+def test_miller_values_match_plain_and_oracle(stage):
+    """pair_miller's per-thread value equals the plain miller_values
+    coefficient by coefficient (the same line scaling), 1 on identity
+    pairs, and the oracle's pairing after the oracle's final exponentiation."""
+    g1s, g2s, _, _, _, _, kernel_fs, plain_fs = stage
+    for i in range(len(g1s)):
+        assert _fq12_value(kernel_fs[i]) == _plain_value(plain_fs[i]), i
+    skips = [i for i in range(len(g1s)) if g1s[i][2] == 0 or g2s[i][2] == (0, 0)]
+    assert len(skips) == 3
+    for i in skips:
+        assert _fq12_value(kernel_fs[i]) == OF.FQ12_ONE
+    i = next(i for i in range(len(g1s)) if i not in skips)
+    p_aff = oc.jac_to_affine(oc.FQ_OPS, g1s[i])
+    q_aff = oc.jac_to_affine(oc.FQ2_OPS, g2s[i])
+    assert OF.fq12_eq(opair.final_exponentiation(_fq12_value(kernel_fs[i])),
+                      opair.pairing(p_aff, q_aff))
+
+
+def test_final_exp_is_the_cube_of_the_oracles(host_check, stage):
+    """The 3-hard chain gives e^3: the oracle's final exponentiation
+    cubed, for a valid product (1) and single Miller values."""
+    g1s, _, pair_sub, _, _, _, kernel_fs, _ = stage
+    valid = [i for i, s in enumerate(pair_sub) if s == 0]
+    f_valid = OF.fq12_mul(_fq12_value(kernel_fs[valid[0]]), _fq12_value(kernel_fs[valid[1]]))
+    singles = [_fq12_value(kernel_fs[i]) for i in valid]
+    fs = [f_valid] + singles
+    out = host_check([_gam_line()] + [f"FE {_ints(_fq12_limbs(f))}" for f in fs])[1:]
+    for f, row in zip(fs, out):
+        want = _cube(opair.final_exponentiation(f))
+        assert _fq12_value(row[:432]) == want
+        assert row[432] == (want == OF.FQ12_ONE)
+    assert [row[432] for row in out] == [1, 0, 0]
+
+
+def test_subset_members_is_the_plain_product_order():
+    offsets, members = dpair.subset_members([2, 0, 1, 0, 2, 2], 4)
+    assert offsets.dtype == members.dtype == np.int32
+    assert offsets.tolist() == [0, 2, 3, 6, 6]
+    assert members.tolist() == [1, 3, 2, 0, 4, 5]
+    with pytest.raises(ValueError):
+        dpair.subset_members([0, 4], 4)
+
+
+@low_priority
+def test_pair_final_and_cpu_route_match_plain_stage(host_check, stage):
+    """pair_final's per-thread verdicts on the CSR layout and the CPU
+    route of ``backend.pair_stage`` (plain, no launch) agree with each
+    other and with the oracle."""
+    g1s, g2s, pair_sub, want, lhs, rhs, kernel_fs, _ = stage
+    n_sub = len(want)
+    offsets, members = dpair.subset_members(pair_sub, n_sub)
+    out = host_check([_gam_line(), f"PF {len(g1s)} {n_sub} {_ints(kernel_fs)} "
+                      f"{_ints(offsets)} {_ints(members)}"])[1]
+    assert [bool(v) for v in out] == want
+    with torch.inference_mode():
+        build.reset_launches()
+        assert dbackend.pair_stage(lhs, rhs, pair_sub, n_sub).tolist() == want
+    assert not build.LAUNCHES
+    for s in range(n_sub):
+        aff = [(oc.jac_to_affine(oc.FQ_OPS, g1s[i]), oc.jac_to_affine(oc.FQ2_OPS, g2s[i]))
+               for i in range(len(g1s)) if pair_sub[i] == s]
+        aff = [(a, b) for a, b in aff if a is not None and b is not None]
+        assert opair.multi_pairing_is_one(aff) is want[s]
+    # The kernel wrappers refuse CPU tensors instead of falling back.
+    with pytest.raises(ValueError):
+        dpair.miller_values_kernel(lhs, rhs)
+    with pytest.raises(ValueError):
+        dpair.pair_stage_kernel(lhs, rhs, pair_sub, n_sub)
+    assert not build.LAUNCHES
+
+
+@pytest.mark.slow
+def test_plain_stage_matches_jax_pairing_product():
+    """The plain pair stage, the CPU route, against the JAX package's
+    ``pairing_product_is_one`` on the same three cases.  Marked slow: the
+    JAX function compiles for many minutes on a CPU without a warm cache."""
+    fn = jax.jit(jpairing.pairing_product_is_one)
+    for g1, g2, want in _bls_pairs():
+        got_jax = bool(fn(jcurve.g1_to_dev(g1), jcurve.g2_to_dev(g2)))
+        with torch.inference_mode():
+            got = bool(dbackend.pair_stage_plain(dc.g1_to_dev(g1), dc.g2_to_dev(g2),
+                                                 [0, 0], 1)[0])
+        assert got == got_jax == want
+
+
+def test_product_counts_match_chip_smoke_chains(host_check, stage):
+    """The Fq products ``chip_smoke.py`` gives as each K3 thread's serial
+    chain are the products the kernels' code runs (host build, counted in
+    ``fq.cuh``'s portable product); its bounds count less, on the same
+    schedule of |x|."""
+    import chip_smoke
+
+    g1s, g2s, _, _, _, _, kernel_fs, _ = stage
+    lines = ["N", _ml_line(g1s[0], g2s[0]), "N", _ml_line((1, 1, 0), g2s[0]), "N",
+             _gam_line(), "N", f"FE {_ints(kernel_fs[0])}", "N",
+             f"PF 3 1 {_ints(kernel_fs[:3])} 0 3 0 1 2", "N"]
+    counts = [row[0] for line, row in zip(lines, host_check(lines)) if line == "N"][1:]
+    miller, identity, gammas, fe, pf3 = counts
+    read = chip_smoke.FQ12_READ_PRODUCTS
+    assert miller == chip_smoke.MILLER_PRODUCTS
+    assert identity == chip_smoke.MILLER_IDENTITY_PRODUCTS
+    assert gammas == chip_smoke.GAMMA_PRODUCTS
+    assert fe == chip_smoke.FINAL_EXP_PRODUCTS + 2 * read  # read f, write the result
+    assert pf3 == chip_smoke.FINAL_EXP_PRODUCTS + 3 * read + 2 * chip_smoke.FQ12_MUL_PRODUCTS
+    # The bounds' Miller loop and powers by |x| follow the plain schedule:
+    # 63 doublings (squares) and an addition (product) at 5 set bits.
+    assert sum(n for n, _ in tp.X_RUNS) == 63
+    assert sum(1 for _, add in tp.X_RUNS if add) == 5
+    assert chip_smoke.MILLER_NEED + chip_smoke.AFFINE_NEED[0] < miller
+    assert chip_smoke.FINAL_EXP_NEED < chip_smoke.FINAL_EXP_PRODUCTS
