@@ -1,0 +1,78 @@
+"""Time the port's hand kernels in several checkouts, in turns, on one CUDA card.
+
+Each argument is the root of a checkout: this repository, or another
+commit unpacked with ``git archive`` into a directory ``.gitignore``
+lists.  For each root, in the order given, a fresh process imports that
+root's ``chip_smoke.py`` and ``hbbft_tpu_torch``, builds its kernels into
+that root's build directory, and runs ``chip_smoke.py``'s kernel phases:
+K1 at the data plane's leaf shape, K4 on 2,048 rows, the four K2 kernels
+at one firehose chunk and the two K3 kernels at the firehose's pairs,
+each held against its plain version as ``chip_smoke.py`` holds it.  The
+phases' own lines go to standard output as they come; the last lines are
+one JSON object per run, ``{"root": ..., "ms": {kernel: ms}}``.
+
+Run from the repository root on a machine with one CUDA card, parent and
+change in turns so that drift shows:
+
+    python3 benchmarks_torch/kernel_ab.py parent . . parent
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r"""
+import json, os, sys
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, root)
+os.chdir(root)
+import chip_smoke as cs
+from hbbft_tpu_torch import build
+from hbbft_tpu_torch.crypto import keys
+from hbbft_tpu_torch.crypto.backend import VerifyRequest
+from hbbft_tpu_torch.crypto.bls import curve as oc
+from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
+
+card = cs.card_line()
+build.build_all(["keccak", "fq", "scan", "pair"])
+suite = BLSSuite()
+firehose = cs._firehose(keys, VerifyRequest, suite)
+mixed, bad = cs._mixed_512(keys, VerifyRequest, suite, G2Elem, oc._twist_sample_point())
+kernels = cs.phase_kernels(card, leaf_shape=(104 * 104, 14))
+kernels.append(cs.phase_field(card))
+kernels += cs.phase_scan(card, firehose, mixed)
+kernels += cs.phase_pair(card, firehose, mixed, bad)
+print("KERNEL_MS " + json.dumps({k["name"]: k["ms"] for k in kernels}), flush=True)
+"""
+
+
+def run(root: str) -> dict:
+    proc = subprocess.Popen([sys.executable, "-c", CHILD, root], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    ms = None
+    for line in proc.stdout:
+        if line.startswith("KERNEL_MS "):
+            ms = json.loads(line[len("KERNEL_MS "):])
+        else:
+            print(f"[{root}] {line}", end="", flush=True)
+    if proc.wait() != 0 or ms is None:
+        raise RuntimeError(f"the kernel phases failed in {root}")
+    return {"root": root, "ms": ms}
+
+
+def main() -> int:
+    roots = sys.argv[1:]
+    if not roots:
+        print(__doc__, file=sys.stderr)
+        return 2
+    results = [run(root) for root in roots]
+    for r in results:
+        print(json.dumps(r), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -83,20 +83,29 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 FQ_MUL_IMAD = 12 * 12 * 2 + 12 + 12 * 12 * 2  # 588
 # Fq products per point operation (crypto/device/curve.py formulas): an
 # Fq2 square takes 2 Fq products, an Fq2 product 3 (Karatsuba).
-G1_DBL, G1_ADD, G1_EQ = 7, 16, 8  # 5 sqr + 2 mul; 4 sqr + 12 mul; 2 sqr + 6 mul
+# G1 as (products, squares): 2 + 5, 12 + 4, 6 + 2 (an Fq square is cheaper,
+# FQ_SQR_IMAD below).  G2 in products only: an Fq2 square is 2 Fq products,
+# neither of them a square.
+G1_DBL, G1_ADD, G1_EQ = (2, 5), (12, 4), (6, 2)
 G2_DBL, G2_ADD, G2_EQ = 5 * 2 + 2 * 3, 4 * 2 + 12 * 3, 2 * 2 + 6 * 3
 PSI = 2 * 3  # two Fq2 products
-# Fq products of one K3 thread as the kernels run them (csrc/pair.cu;
-# tests/test_torch_pair_host.py counts them on the host build of the same
-# code): a pair_miller thread, with both affine inversions and the limb
-# conversions, or one whose pair has an identity side; a pair_final
-# thread's final exponentiation, reading one Miller value, and one Fq12
-# product; the Frobenius constants each block of pair_final converts.
-# These are the kernels' serial chains, which explain their times; the
-# bounds count the work below instead.
+# Fq products as the kernels run them (tests/test_torch_kernel_host.py and
+# tests/test_torch_pair_host.py count them on the host build of the same
+# code), as (all products, critical path).  The critical path is the
+# products of the longest chain: one thread's products where a thread runs
+# alone; for the lane-team kernels, each stage's busiest lane.  A G2 row
+# of scan_g2_rows (both its warps; the path is the RLC scan's warp); a
+# pair_miller thread, with both affine inversions and the limb
+# conversions, or one whose pair has an identity side; pair_final's final
+# exponentiation, reading one Miller value, and one Fq12 product; the
+# Frobenius constants each warp of pair_final converts.  The paths explain
+# the kernels' times; the bounds count the work below instead.
+G2_ROW_PRODUCTS, G2_ROW_PATH = 5_268, 731
 MILLER_PRODUCTS, MILLER_IDENTITY_PRODUCTS = 10_441, 21
-FINAL_EXP_PRODUCTS, FQ12_READ_PRODUCTS, FQ12_MUL_PRODUCTS = 22_857, 12, 108
-GAMMA_PRODUCTS, PAIR_BLOCK = 60, 32
+FINAL_EXP_PRODUCTS, FINAL_EXP_PATH = 8_208, 913
+FQ12_READ_PRODUCTS, FQ12_READ_PATH = 12, 1
+FQ12_MUL_PRODUCTS, FQ12_MUL_PATH = 54, 2
+GAMMA_PRODUCTS = 24
 # The least work of the pair check, as (Fq products, Fq squares).  An Fq
 # square needs 456 multiply-adds: its 66 cross products once (doubled by
 # a shift), 12 squares, then the 300 of the reduction.  Fq2 (Karatsuba):
@@ -317,20 +326,21 @@ def _same_points(p, q, group: int) -> bool:
 
 
 def _scan_work(inp) -> dict:
-    """Fq products and bytes each K2 kernel needs for these inputs:
-    doublings always run; an addition costs nothing when an operand is
-    the identity (add_unsafe routes on the flag), so the first set bit of
-    a scan and identity rows add nothing."""
+    """Bytes, Fq products and Fq squares each K2 kernel needs for these
+    inputs, from the curve.py formulas: doublings always run; an addition
+    costs nothing when an operand is the identity (add_unsafe routes on the
+    flag), so the first set bit of a scan and identity rows add nothing."""
     w1 = inp.g1_words.cpu().numpy().view(np.uint32).astype(object)
     w2 = inp.g2_words.cpu().numpy().view(np.uint32).astype(object)
     inf1 = inp.g1_pts[3].cpu().numpy()
     inf2 = inp.g2_pts[3].cpu().numpy()
     xabs = 0xD201000000010000
-    prod1 = 0
+    prod1 = sqr1 = 0
     for words, inf in zip(w1, inf1):
         c = sum(int(v) << (32 * i) for i, v in enumerate(words))
         adds = 0 if inf else max(bin(c).count("1") - 1, 0) + 16
-        prod1 += 3 + 127 * G1_DBL + adds * G1_ADD + 1 + G1_EQ
+        prod1 += 3 + 127 * G1_DBL[0] + adds * G1_ADD[0] + 1 + G1_EQ[0]
+        sqr1 += 127 * G1_DBL[1] + adds * G1_ADD[1] + G1_EQ[1]
     prod2 = 0
     for words, inf in zip(w2, inf2):
         sq = sum(int(v) << (32 * i) for i, v in enumerate(words))
@@ -343,12 +353,12 @@ def _scan_work(inp) -> dict:
     p2, s2 = inp.g2_pieces.shape[0] - 1, inp.g2_segments.shape[0] - 1
     rec1, rec2 = 37 * 4, 73 * 4
     return {
-        "scan_g1_rows": (n1 * (3 * 36 * 8 + 8 + 16 + 4 + 4) + n1 * rec1, prod1),
-        "scan_g2_rows": (n2 * (3 * 72 * 8 + 8 + 20 + 4 + 4) + n2 * rec2, prod2),
+        "scan_g1_rows": (n1 * (3 * 36 * 8 + 8 + 16 + 4 + 4) + n1 * rec1, prod1, sqr1),
+        "scan_g2_rows": (n2 * (3 * 72 * 8 + 8 + 20 + 4 + 4) + n2 * rec2, prod2, 0),
         "scan_g1_sums": ((n1 + 2 * p1) * rec1 + s1 * (3 * 36 * 8 + 8),
-                         (n1 - s1) * G1_ADD + 3 * s1),
+                         (n1 - s1) * G1_ADD[0] + 3 * s1, (n1 - s1) * G1_ADD[1]),
         "scan_g2_sums": ((n2 + 2 * p2) * rec2 + s2 * (3 * 72 * 8 + 8),
-                         (n2 - s2) * G2_ADD + 6 * s2),
+                         (n2 - s2) * G2_ADD + 6 * s2, 0),
     }
 
 
@@ -433,10 +443,15 @@ def phase_scan(card: str, firehose: list, mixed: list) -> list:
             fn, repeats = timed[name]
             ms = cuda_time_ms(fn, repeats)
             plain_ms = cuda_time_ms(plain[name], 1)
-            n_bytes, products = work[name]
-            bound_ms, bound_by = bound(n_bytes, products * FQ_MUL_IMAD)
+            n_bytes, products, squares = work[name]
+            bound_ms, bound_by = bound(n_bytes, products * FQ_MUL_IMAD + squares * FQ_SQR_IMAD)
+            rows2 = inp.g2_words.shape[0]
+            chain = (f"; the kernel's work {G2_ROW_PRODUCTS * rows2} Fq products, its critical "
+                     f"path {G2_ROW_PATH} = {ms * 1e3 / G2_ROW_PATH:.3f} us per product"
+                     if name == dscan.G2_ROWS else "")
             log(f"{name} at one firehose chunk: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}; {products} Fq products, {n_bytes} bytes)  [{card}]")
+                f"{bound_ms:.4f} ms ({bound_by}; {products} Fq products and {squares} squares, "
+                f"{n_bytes} bytes){chain}  [{card}]")
             out.append({
                 "name": name, "route": "cuda", "source": "hbbft_tpu_torch/csrc/scan.cu",
                 "replaces": "hbbft_tpu/crypto/tpu/backend.py:79", "launches": None,
@@ -449,8 +464,9 @@ def phase_scan(card: str, firehose: list, mixed: list) -> list:
 
 def _pair_work(lhs, rhs, pair_sub, n_sub: int) -> dict:
     """Bytes and least multiply-adds of each K3 kernel's function for
-    these pairs, and the longest thread's Fq products as the kernel runs
-    them (its serial chain).  A pair with an identity side needs no work
+    these pairs, the kernel's serial chain in Fq products (the longest
+    thread's for pair_miller, the critical path of the busiest warp for
+    pair_final) and all the Fq products the kernel runs.  A pair with an identity side needs no work
     (its value is 1); a subset of c pairs multiplies c - 1 Miller values;
     each launch shares one Fermat inverse among its values."""
     skip = (lhs[3] | rhs[3]).cpu().tolist()
@@ -466,13 +482,16 @@ def _pair_work(lhs, rhs, pair_sub, n_sub: int) -> dict:
     final_need = imad(sum(FINAL_EXP_NEED + FQ12_MUL * (c - 1) for c in counts if c),
                       2 * sum(1 for c in counts if c), sum(1 for c in counts if c))
     miller_chain = MILLER_IDENTITY_PRODUCTS if all(skip) else MILLER_PRODUCTS
-    final_chain = FINAL_EXP_PRODUCTS + FQ12_READ_PRODUCTS * max(counts) + FQ12_MUL_PRODUCTS * max(
+    final_chain = FINAL_EXP_PATH + FQ12_READ_PATH * max(counts) + FQ12_MUL_PATH * max(
         max(counts) - 1, 0)
+    final_work = sum(GAMMA_PRODUCTS + FINAL_EXP_PRODUCTS + FQ12_READ_PRODUCTS * c
+                     + FQ12_MUL_PRODUCTS * max(c - 1, 0) for c in counts)
     return {
         "pair_miller": (n * (3 * 36 * 8 + 8 + 3 * 72 * 8 + 8 + fq12_bytes), miller_need,
-                        miller_chain),
-        "pair_final": (n * fq12_bytes + (n_sub + 1 + n + n_sub) * 4 + 30 * 72 * 8, final_need,
-                       final_chain),
+                        miller_chain,
+                        MILLER_IDENTITY_PRODUCTS * (n - live) + MILLER_PRODUCTS * live),
+        "pair_final": (n * fq12_bytes + (n_sub + 1 + n + n_sub) * 4 + 12 * 72 * 8, final_need,
+                       final_chain, final_work),
     }
 
 
@@ -583,12 +602,12 @@ def phase_pair(card: str, firehose: list, mixed: list, bad: list) -> list:
         for name in dpair.KERNELS:
             kernel, plain_ms = timed[name]
             ms = cuda_time_ms(kernel, 10)
-            n_bytes, n_imad, serial = work[name]
+            n_bytes, n_imad, serial, products = work[name]
             bound_ms, bound_by = bound(n_bytes, n_imad)
             log(f"{name} at the firehose's {len(pair_sub)} pairs: kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}; {n_imad} multiply-adds "
-                f"of the pair check, {n_bytes} bytes); the kernel's serial chain {serial} Fq "
-                f"products = {ms * 1e3 / serial:.3f} us per product  [{card}]")
+                f"of the pair check, {n_bytes} bytes); the kernel's work {products} Fq products, "
+                f"its serial chain {serial} = {ms * 1e3 / serial:.3f} us per product  [{card}]")
             out.append({
                 "name": name, "route": "cuda", "source": "hbbft_tpu_torch/csrc/pair.cu",
                 "replaces": "hbbft_tpu/crypto/tpu/backend.py:137", "launches": None,
@@ -598,9 +617,14 @@ def phase_pair(card: str, firehose: list, mixed: list, bad: list) -> list:
         stage_ms = cuda_time_ms(lambda: dpair.pair_stage_kernel(lhs, rhs, pair_sub, 1), 10)
         level_ms = cuda_time_ms(
             lambda: dpair.pair_stage_kernel(llhs, lrhs, lsub, len(level)), 5)
+        l_off, l_mem = (torch.as_tensor(a, device="cuda")
+                        for a in dpair.subset_members(lsub, len(level)))
+        l_fs = dpair.miller_values_kernel(llhs, lrhs)
+        level_final_ms = cuda_time_ms(
+            lambda: dpair.final_kernel(l_fs, l_off, l_mem, len(level)), 5)
     log(f"pair stage at the firehose's pairs: K3 {stage_ms:.3f} ms, plain {plain_stage_ms:.1f} ms; "
         f"K3 at the last bisection level ({llhs[3].shape[0]} pairs, {len(level)} subsets) "
-        f"{level_ms:.3f} ms  [{card}]")
+        f"{level_ms:.3f} ms, its pair_final {level_final_ms:.3f} ms  [{card}]")
     log(sass_summary("pair", "pair kernels"))
     return out
 

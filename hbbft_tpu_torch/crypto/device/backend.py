@@ -374,13 +374,12 @@ class TorchBackend(CryptoBackend):
         and a pair stage) per half.  Here every half of one bisection
         level is checked in one scan and one pair stage: the same halves,
         the same coefficients and the same verdicts.  Each stage has a
-        floor whatever its rows (a K3 pair stage is one thread's chain,
-        ~63 ms on an H100 at one subset or six), so this pays one stage
-        per level instead of one per half.  ``benchmarks_torch/bisect_ab.py``
-        times the two orders against each other: on the mixed-512 batch
-        with the K2 and K3 kernels, level-wide took 1.58 s over 10
-        stages and depth-first 4.83 s over 49 (NVIDIA H100 80GB HBM3,
-        700 W).  Single failing requests go to :class:`EagerBackend`.
+        floor whatever its rows (a K3 pair stage takes ~23 ms on an H100
+        at one subset or six, most of it ``pair_miller``'s one-thread
+        chain), so this pays one stage per level instead of one per half.
+        ``benchmarks_torch/bisect_ab.py`` times the two orders against
+        each other on the mixed-512 batch; ``PERF.md`` keeps its numbers.
+        Single failing requests go to :class:`EagerBackend`.
         """
         failing = [idxs]
         while failing:

@@ -8,13 +8,14 @@ per subset.  Two launches:
 * ``pair_miller``, one thread per pair: affine conversion, the Miller
   loop, and the factor 1 where either side is the identity — the values
   of the plain :func:`pairing.miller_values`, as (n, 6, 2, 36) limbs;
-* ``pair_final``, one thread per subset: the product of the subset's
-  Miller values in pair order, the final exponentiation and ``is_one``.
+* ``pair_final``, one warp per subset: the product of the subset's
+  Miller values in pair order, the final exponentiation over the Fq6
+  tower and ``is_one``.
 
 The host layout, made by :func:`subset_members`: each subset's pair
 indices as a CSR list (int32 offsets and members, pair order kept inside
-a subset), and the Frobenius constants for k = 1, 2, 4, 8, 10 as one
-(5, 6, 2, 36) buffer of the limbs the plain version registers
+a subset), and the Frobenius constants for k = 1, 2 as one (2, 6, 2, 36)
+buffer of the limbs the plain version registers
 (:func:`pairing._gamma_name`).
 
 The kernel wrappers check device, dtype, shape and contiguity, launch on
@@ -42,7 +43,7 @@ MILLER = "pair_miller"
 FINAL = "pair_final"
 KERNELS = (MILLER, FINAL)
 
-GAMMA_KS = (1, 2, 4, 8, 10)  # the Frobenius powers pair_final takes constants for
+GAMMA_KS = (1, 2)  # the Frobenius powers pair_final takes constants for
 FQ12_SHAPE = (6, 2, fq.NL)
 
 I32 = torch.int32
@@ -65,7 +66,7 @@ def subset_members(pair_sub: Sequence[int], n_sub: int) -> Tuple[np.ndarray, np.
 
 @lru_cache(maxsize=None)
 def gamma_limbs(device: torch.device) -> torch.Tensor:
-    """The Frobenius constants of :data:`GAMMA_KS`, (5, 6, 2, 36) int64."""
+    """The Frobenius constants of :data:`GAMMA_KS`, (2, 6, 2, 36) int64."""
     return torch.stack(
         [fq.const(dpairing._gamma_name(k), device) for k in GAMMA_KS]).contiguous()
 

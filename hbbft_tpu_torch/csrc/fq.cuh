@@ -32,7 +32,16 @@
 // What bounds a product: 32-bit multiply-adds.  Schoolbook CIOS needs
 // 12 x 12 lo/hi pairs for a*b, 12 for the quotient words m and 12 x 12
 // lo/hi pairs for m*P: 588 IMAD instructions (chip_smoke.py derives the
-// scan bounds from this count).
+// scan bounds from this count).  A square is the same product: a
+// dedicated square (456 multiply-adds: the 66 cross products once, then
+// the reduction) had a longer dependent chain on the H100 than this CIOS
+// product and made the G1 rows slower, so none is kept (PERF.md).
+//
+// The product has two forms.  mont_mul_in is forced inline and takes its
+// operands by reference: the lane teams (team.cuh) call it from one
+// out-of-line part function.  mont_mul is an out-of-line copy for the
+// kernels that still run a whole row in one thread, where inlining every
+// product would multiply the code.
 
 #pragma once
 
@@ -163,7 +172,7 @@ __device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
   return r;
 }
 
-FQ_CALL Fq mont_mul(Fq a, Fq b) {
+FQ_HD Fq mont_mul_in(const Fq& a, const Fq& b) {
   const Fq p = fq_p();
   uint32_t t[kWords + 2];
   FQ_UNROLL
@@ -198,18 +207,23 @@ FQ_CALL Fq mont_mul(Fq a, Fq b) {
   return reduce_once(t, t[kWords]);
 }
 
+FQ_CALL Fq mont_mul(Fq a, Fq b) { return mont_mul_in(a, b); }
+
 #else  // portable path: the same rows on 64-bit integers
 
-// Products since the host check last read it: the host check counts the
-// Fq products of a request, which chip_smoke.py's bounds assume.
+// Counters the host check reads: every Fq product, and the critical path,
+// the products of the longest chain when each lane of a team (team.cuh)
+// runs on its own thread.
 inline uint64_t host_products = 0;
+inline uint64_t host_path = 0;
 
 // The operands are references here: GCC 12 at -O1/-O2 drops the caller's
 // stores into a 48-byte struct passed by value to this function (its
 // mod/ref analysis marks the argument unread), so by-value operands gave
 // wrong products on the host.
-FQ_CALL Fq mont_mul(const Fq& a, const Fq& b) {
+FQ_HD Fq mont_mul_in(const Fq& a, const Fq& b) {
   ++host_products;
+  ++host_path;
   const Fq p = fq_p();
   uint32_t t[kWords + 2] = {0};
   for (int i = 0; i < kWords; ++i) {
@@ -236,6 +250,8 @@ FQ_CALL Fq mont_mul(const Fq& a, const Fq& b) {
   }
   return reduce_once(t, t[kWords]);
 }
+
+FQ_CALL Fq mont_mul(const Fq& a, const Fq& b) { return mont_mul_in(a, b); }
 
 #endif
 

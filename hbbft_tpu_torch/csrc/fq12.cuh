@@ -1,22 +1,16 @@
-// Fq12 for the pair-stage kernels (K3), in the port's own basis: six Fq2
-// coefficients of w with w^6 = xi = 1 + u, the (6, 2, 36) limb tensors of
-// crypto/device/pairing.py.  Not an Fq6 tower, so a kernel value and a
-// plain value compare coefficient by coefficient (as canonical values).
+// Fq12 for pair_miller (K3), in the port's own basis: six Fq2 coefficients
+// of w with w^6 = xi = 1 + u, the (6, 2, 36) limb tensors of
+// crypto/device/pairing.py.  Not an Fq6 tower, so a kernel's Miller value
+// and the plain one compare coefficient by coefficient (as canonical
+// values).  pair_final maps these values to the Fq6 tower (tower.cuh).
 //
-// Replaces, inside the kernels, the Fq12 ops of
-// hbbft_tpu/crypto/tpu/pairing.py (mul :94, _reduce_cross :100,
-// sparse_mul :132, conj/frobenius/inv :139-:150, pow_x_abs :161, is_one
-// :182) and their plain counterparts in crypto/device/pairing.py.
+// Replaces, inside the Miller loop, the Fq12 ops of
+// hbbft_tpu/crypto/tpu/pairing.py (_reduce_cross :100, sparse_mul :132,
+// conj :139) and their plain counterparts in crypto/device/pairing.py.
 //
 // Like fq.cuh, every function is __host__ __device__, so the host check
 // (tests/test_torch_pair_host.py) runs the same code.  Elements go to the
 // out-of-line functions by reference (fq.cuh's portable mont_mul says why).
-//
-// The Frobenius constants gamma[k][i] = xi^(i (p^k - 1) / 6) are not typed
-// in here: the caller passes them in, converted from the same port limbs
-// the plain version registers (pairing.py _gamma_name), for k = 1, 2, 4,
-// 8 and 10.  k = 6 needs none: gamma[6][i] = (-1)^i, so conj negates the
-// odd coefficients.
 
 #pragma once
 
@@ -36,12 +30,6 @@ using fq::Fq2;
 struct Fq12 {
   Fq2 c[6];  // sum c[i] w^i
 };
-
-// The Frobenius powers whose constants the caller passes, k = 1, 2, 4, 8,
-// 10 in this order: gam[6 * gamma_slot(k) + i] = gamma[k][i].
-constexpr int kGammaSlots = 5;
-
-FQ_HD int gamma_slot(int k) { return k == 1 ? 0 : k == 2 ? 1 : k == 4 ? 2 : k == 8 ? 3 : 4; }
 
 FQ_HD Fq2 fq2_zero() { return Fq2{fq::fq_zero(), fq::fq_zero()}; }
 FQ_HD Fq2 fq2_one() { return Fq2{fq::fq_one(), fq::fq_zero()}; }
@@ -84,15 +72,6 @@ FQ_HD Fq12 cross_fold(const Cross& x) {
   return r;
 }
 
-// Full product: the 6 x 6 cross of Fq2 products (108 Fq products).
-FQ12_CALL Fq12 mul(const Fq12& a, const Fq12& b) {
-  Cross x;
-  cross_clear(&x);
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) cross_add(&x, i + j, mul2(a.c[i], b.c[j]));
-  return cross_fold(x);
-}
-
 // Square: the same cross, each unordered pair once (6 squares and 15
 // doubled products: 57 Fq products).
 FQ12_CALL Fq12 sqr(const Fq12& a) {
@@ -120,67 +99,17 @@ FQ12_CALL Fq12 sparse_mul(const Fq12& a, const Fq2& l0, const Fq2& l2, const Fq2
   return cross_fold(x);
 }
 
-// a^(p^6): the inverse on the cyclotomic unit circle.  gamma[6][i] =
-// (-1)^i, so the odd coefficients change sign (pairing.py frobenius(a, 6)).
+// a^(p^6): the inverse on the cyclotomic unit circle.  The Frobenius
+// constants gamma[6][i] are (-1)^i, so the odd coefficients change sign
+// (pairing.py frobenius(a, 6)).
 FQ_HD Fq12 conj(const Fq12& a) {
   Fq12 r;
   for (int i = 0; i < 6; ++i) r.c[i] = (i & 1) ? fq::neg(a.c[i]) : a.c[i];
   return r;
 }
 
-// a^(p^k) for k = 1, 2, 4, 8 or 10: the coefficient Frobenius (Fq2 conjugate when
-// k is odd) times gamma[k][i].
-FQ12_CALL Fq12 frobenius(const Fq12& a, int k, const Fq2* gam) {
-  const Fq2* g = gam + 6 * gamma_slot(k);
-  Fq12 r;
-  for (int i = 0; i < 6; ++i) r.c[i] = mul2((k & 1) ? fq::conj(a.c[i]) : a.c[i], g[i]);
-  return r;
-}
-
-// Inverse through the norm to Fq2 (pairing.py inv, the oracle's fq12_inv):
-// prod = a^(p^2 + p^4 + p^6 + p^8 + p^10), a * prod lies in Fq2, one Fq2
-// inverse.  0 maps to 0.
-FQ12_CALL Fq12 inv(const Fq12& a, const Fq2* gam) {
-  Fq12 prod = frobenius(a, 2, gam);
-  prod = mul(prod, frobenius(a, 4, gam));
-  prod = mul(prod, conj(a));
-  prod = mul(prod, frobenius(a, 8, gam));
-  prod = mul(prod, frobenius(a, 10, gam));
-  const Fq12 norm = mul(a, prod);
-  const Fq2 ninv = fq::inv(norm.c[0]);
-  Fq12 r;
-  for (int i = 0; i < 6; ++i) r.c[i] = mul2(prod.c[i], ninv);
-  return r;
-}
-
 // |x| = 0xd201000000010000, the BLS parameter's magnitude.
 constexpr uint64_t kXAbs = 0xd201000000010000ull;
-
-// f^|x|: from the top bit down, a square per bit and a product at each of
-// the 5 set bits below the top.  This is pairing.py's X_RUNS schedule (its
-// runs are this bit string in run-length form).
-FQ12_CALL Fq12 pow_x_abs(const Fq12& f) {
-  Fq12 acc = f;
-  for (int k = 62; k >= 0; --k) {
-    acc = sqr(acc);
-    if ((kXAbs >> k) & 1u) acc = mul(acc, f);
-  }
-  return acc;
-}
-
-// f^x for x < 0, f unitary.
-FQ_HD Fq12 pow_x(const Fq12& f) { return conj(pow_x_abs(f)); }
-
-// Exact: every coefficient is fully reduced (< P), so equality is word
-// equality with the Montgomery form of 1.
-FQ_HD bool is_one(const Fq12& a) {
-  const Fq one = fq::fq_one();
-  uint32_t diff = 0;
-  for (int j = 0; j < fq::kWords; ++j) diff |= a.c[0].c0.w[j] ^ one.w[j];
-  bool ok = diff == 0 && fq::is_zero(a.c[0].c1);
-  for (int i = 1; i < 6; ++i) ok = ok && fq::is_zero(a.c[i]);
-  return ok;
-}
 
 // The port's limbs at the kernel boundary: (6, 2, 36) int64.
 FQ_HD Fq12 from_port12(const int64_t* limbs) {

@@ -19,15 +19,22 @@
 //                            -> [c]P as x, y, z limbs, inf, then the
 //                               subgroup verdict (0 or 1)
 //   G2 x[72] y[72] z[72] inf s[2] q[3]
-//                            -> [c]Q likewise, c = q |x| + s
+//                            -> [c]Q likewise, c = q |x| + s, by the
+//                               two six-lane teams of scan_g2_rows
 //   I  a[36]                 -> the Fermat inverse: 36 limbs
 //   I2 a[72] s[36]           -> the Fq2 inverse of a, then a * s: 2 x 72
-//   GAM g[360]               -> (empty) sets the Frobenius constants for
-//                               k = 1, 2, 4, 8, 10, (5, 6, 2, 36) limbs
-//   F12 a[432] b[432]        -> Fq12 mul(a, b), sqr(a), sparse_mul(a, b0,
-//                               b2, b3), conj(a), frobenius(a, k) for k =
-//                               1, 2, 4, 8, 10, inv(a), pow_x_abs(a):
-//                               11 x 432 limbs, then is_one(a)
+//   GAM g[144]               -> (empty) sets the Frobenius constants for
+//                               k = 1, 2, (2, 6, 2, 36) limbs
+//   F12 a[432] b[432]        -> pair_miller's w-basis sqr(a), sparse_mul(a,
+//                               b0, b2, b3) and conj(a), then pair_final's
+//                               tower ops mul(a, b), conj(a), frobenius(a,
+//                               k) for k = 1, 2 and inv(a): 8 x 432 limbs,
+//                               then is_one(a)
+//   CS f[432]                -> for f in the cyclotomic subgroup: the
+//                               Granger-Scott square, the product f f and
+//                               f^x: 3 x 432 limbs
+//   TW a[432]                -> a in the tower's slot order, then back in
+//                               the w basis: 2 x 432 limbs
 //   ML x[36] y[36] z[36] inf x[72] y[72] z[72] inf
 //                            -> pair_miller's value for one (G1, G2)
 //                               pair: 432 limbs
@@ -35,7 +42,11 @@
 //                               432 limbs, then is_one of it
 //   PF n n_sub f[n * 432] offsets[n_sub + 1] members[n]
 //                            -> pair_final's verdicts, n_sub values
-//   N                        -> the Fq products since the last N (1 value)
+//   N                        -> the Fq products since the last N and their
+//                               critical path (2 values)
+//
+// The lane-team code (scan_g2_rows' rows, pair_final's subsets) runs its
+// lanes one after another here (team.cuh).
 
 #include <cstdint>
 #include <cstdio>
@@ -88,8 +99,22 @@ curve::G2 read_g2(std::istringstream& in) {
                    fq::from_port2(z.data()), inf[0] != 0 ? 1u : 0u};
 }
 
-// The Frobenius constants, as pair_final converts them into shared memory.
-fq::Fq2 gammas[fq12::kGammaSlots * 6];
+// pair_final's shared file, its exchange buffer and its team of 32 lanes;
+// GAM loads the Frobenius constants into the file.
+fq::Fq2 pf_file[tower::kSlots];
+fq::Fq pf_xch[tower::kParts];
+const team::Team pf_team{0, tower::kLanes, 0};
+
+// A w-basis value into the file's slots at `at`, and back.
+void put_tower(const fq12::Fq12& a, int at) {
+  for (int i = 0; i < 6; ++i) pf_file[at + tower::slot_of(i)] = a.c[i];
+}
+
+fq12::Fq12 get_tower(int at) {
+  fq12::Fq12 r;
+  for (int i = 0; i < 6; ++i) r.c[i] = pf_file[at + tower::slot_of(i)];
+  return r;
+}
 
 }  // namespace
 
@@ -139,16 +164,27 @@ int main() {
     } else if (tag == "G2") {
       auto x = read_ints(in, 2 * fq::kLimbs), y = read_ints(in, 2 * fq::kLimbs),
            z = read_ints(in, 2 * fq::kLimbs), inf = read_ints(in, 1), sq = read_ints(in, 5);
-      const curve::G2 base{fq::from_port2(x.data()), fq::from_port2(y.data()),
-                           fq::from_port2(z.data()), inf[0] != 0 ? 1u : 0u};
       uint32_t words[5];
       for (int i = 0; i < 5; ++i) words[i] = static_cast<uint32_t>(sq[i]);
+      const uint32_t base_inf = inf[0] != 0 ? 1u : 0u;
+      // The two teams scan_g2_rows gives a row, each on its own file and in
+      // its own warp: two lanes of an outer team, for the path count.
+      const team::Team t{0, curve::g2team::kLanes, 0};
+      fq::Fq2 scan_file[curve::g2team::kSlots], check_file[curve::g2team::kSlots];
+      fq::Fq xch[curve::g2team::kLanes];
+      uint32_t acc_inf = 0;
       bool ok = false;
-      const curve::G2 s = curve::rlc_g2_row(base, words, &ok);
-      put_fq2(s.x);
-      put_fq2(s.y);
-      put_fq2(s.z);
-      std::cout << ' ' << s.inf << ' ' << (ok ? 1 : 0);
+      team::Team{0, 2, 0}.stage(2, [&](int warp) {
+        fq::Fq2* file = warp == 0 ? scan_file : check_file;
+        curve::g2team::load(t, file, x.data(), y.data(), z.data());
+        if (warp == 0) {
+          acc_inf = curve::g2team::scan_row(t, file, xch, base_inf, words);
+        } else {
+          ok = curve::g2team::check_row(t, file, xch, base_inf);
+        }
+      });
+      for (int c = 0; c < 3; ++c) put_fq2(scan_file[curve::g2team::kP3 + c]);
+      std::cout << ' ' << acc_inf << ' ' << (ok ? 1 : 0);
     } else if (tag == "I") {
       auto a = read_ints(in, fq::kLimbs);
       int64_t out[fq::kLimbs];
@@ -160,29 +196,53 @@ int main() {
       put_fq2(fq::inv(x));
       put_fq2(fq::mul_fq(x, fq::from_port(s.data())));
     } else if (tag == "GAM") {
-      auto g = read_ints(in, fq12::kGammaSlots * 6 * 2 * fq::kLimbs);
-      for (int t = 0; t < fq12::kGammaSlots * 6; ++t)
-        gammas[t] = fq::from_port2(g.data() + 2 * fq::kLimbs * t);
+      auto g = read_ints(in, 2 * 6 * 2 * fq::kLimbs);
+      tower::load_gammas(pf_team, pf_file, g.data());
     } else if (tag == "F12") {
       auto a = read_ints(in, kFq12Limbs), b = read_ints(in, kFq12Limbs);
       const fq12::Fq12 x = fq12::from_port12(a.data()), y = fq12::from_port12(b.data());
-      put_fq12(fq12::mul(x, y));
       put_fq12(fq12::sqr(x));
       put_fq12(fq12::sparse_mul(x, y.c[0], y.c[2], y.c[3]));
       put_fq12(fq12::conj(x));
-      for (int k : {1, 2, 4, 8, 10}) put_fq12(fq12::frobenius(x, k, gammas));
-      put_fq12(fq12::inv(x, gammas));
-      put_fq12(fq12::pow_x_abs(x));
-      std::cout << ' ' << (fq12::is_one(x) ? 1 : 0);
+      put_tower(x, tower::kA);
+      put_tower(y, tower::kB);
+      const team::Team& t = pf_team;
+      tower::mul(t, pf_file, pf_xch, tower::kC, tower::kA, tower::kB);
+      put_fq12(get_tower(tower::kC));
+      tower::conj(t, pf_file, tower::kC, tower::kA);
+      put_fq12(get_tower(tower::kC));
+      for (int k : {1, 2}) {
+        tower::frobenius(t, pf_file, pf_xch, tower::kC, tower::kA, k);
+        put_fq12(get_tower(tower::kC));
+      }
+      tower::inv(t, pf_file, pf_xch, tower::kC, tower::kA);
+      put_fq12(get_tower(tower::kC));
+      std::cout << ' ' << (tower::is_one(pf_file, tower::kA) ? 1 : 0);
+    } else if (tag == "CS") {
+      auto f = read_ints(in, kFq12Limbs);
+      put_tower(fq12::from_port12(f.data()), tower::kA);
+      const team::Team& t = pf_team;
+      tower::cyc_sqr(t, pf_file, pf_xch, tower::kC, tower::kA);
+      put_fq12(get_tower(tower::kC));
+      tower::mul(t, pf_file, pf_xch, tower::kC, tower::kA, tower::kA);
+      put_fq12(get_tower(tower::kC));
+      tower::pow_x(t, pf_file, pf_xch, tower::kC, tower::kA);
+      put_fq12(get_tower(tower::kC));
+    } else if (tag == "TW") {
+      auto a = read_ints(in, kFq12Limbs);
+      put_tower(fq12::from_port12(a.data()), tower::kA);
+      for (int s = 0; s < 6; ++s) put_fq2(pf_file[tower::kA + s]);
+      put_fq12(get_tower(tower::kA));
     } else if (tag == "ML") {
       const curve::G1 p = read_g1(in);
       const curve::G2 q = read_g2(in);
       put_fq12(pairing::miller_value(p, q));
     } else if (tag == "FE") {
       auto f = read_ints(in, kFq12Limbs);
-      const fq12::Fq12 e = pairing::final_exp(fq12::from_port12(f.data()), gammas);
-      put_fq12(e);
-      std::cout << ' ' << (fq12::is_one(e) ? 1 : 0);
+      tower::load(pf_team, pf_file, tower::kF, f.data());
+      pairing::final_exp(pf_team, pf_file, pf_xch);
+      put_fq12(get_tower(tower::kD));
+      std::cout << ' ' << (tower::is_one(pf_file, tower::kD) ? 1 : 0);
     } else if (tag == "PF") {
       auto dims = read_ints(in, 2);
       const int n = static_cast<int>(dims[0]), n_sub = static_cast<int>(dims[1]);
@@ -191,13 +251,14 @@ int main() {
       std::vector<int32_t> idx(members.begin(), members.end());
       for (int s = 0; s < n_sub; ++s) {
         const int lo = static_cast<int>(offsets[s]);
-        const bool ok = pairing::subset_is_one(fs.data(), idx.data() + lo,
-                                               static_cast<int>(offsets[s + 1]) - lo, gammas);
+        const bool ok = pairing::subset_is_one(pf_team, pf_file, pf_xch, fs.data(), idx.data() + lo,
+                                               static_cast<int>(offsets[s + 1]) - lo);
         std::cout << ' ' << (ok ? 1 : 0);
       }
     } else if (tag == "N") {
-      std::cout << ' ' << fq::host_products;
+      std::cout << ' ' << fq::host_products << ' ' << fq::host_path;
       fq::host_products = 0;
+      fq::host_path = 0;
     } else {
       std::cerr << "unknown request " << tag << "\n";
       return 2;

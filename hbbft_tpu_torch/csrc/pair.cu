@@ -11,31 +11,41 @@
 //                them to affine, runs the Miller loop and writes the (6, 2,
 //                36) limbs of f_{x,Q}(P), or of 1 where either side is the
 //                identity;
-//   pair_final   one thread per subset: the product of the subset's Miller
+//   pair_final   one warp per subset: the product of the subset's Miller
 //                values in pair order (a CSR list of pair indices), the
 //                final exponentiation and is_one, written as an int32
 //                verdict.
 //
 // What bounds it: 32-bit multiply-adds.  A pair_miller thread runs 10,441
 // Fq products (both affine inversions and the limb conversions included;
-// 21 for an identity pair) and a pair_final thread 22,857 for the final
-// exponentiation, 12 to read its subset's first pair and 120 for each
-// further pair (tests/test_torch_pair_host.py pins the counts on the host
-// build).  That is this code's own schoolbook work in the w basis: the
-// pairing check needs fewer products (chip_smoke.py counts those for its
-// bound).  Each thread's products form one dependent chain, and a flush
-// has tens of pairs and one subset (a bisection level a few subsets), so
-// the card is far from its IMAD rate: the time is one thread's chain.
-// This first design accepts that.  Blocks of 32 threads put each warp on
-// its own SM.
-// f (144 words), T (72) and the lines (72) do not fit in registers beside
-// the product's own state, so they live in each thread's stack frame
-// (ptxas -v: pair_miller 4,720 bytes, pair_final 20,000 bytes); the Fq2
-// and Fq12 functions are calls, not inlined copies, to keep the code small.
-// No call is recursive, so each frame is static and CUDA grows the
-// context's local memory to it at the first launch; that reservation
-// (frame x resident threads of the whole card) stays for the context's
-// life, which makes the frame's size a memory cost as well as a time one.
+// 21 for an identity pair), one dependent chain; its f (144 words), T and
+// the lines live in a 4,720-byte stack frame, and its Fq2 and Fq12
+// functions are calls.  A flush has tens of pairs, so the card is far from
+// its IMAD rate and the time is one thread's chain.
+//
+// pair_final was one thread per subset too at first (22,857 Fq products of
+// w-basis schoolbook arithmetic, 43 ms on an H100 at the firehose's one
+// subset, a 20,000-byte frame that held 3.9 GB of device memory).  Its
+// redesign (tower.cuh, pairing.cuh final_exp):
+//
+//   - One warp per subset (blocks of 32 threads), so a bisection level's
+//     subsets run on different SMs.  The subset's values live in shared
+//     memory (141 Fq2 slots, 16 KB).
+//   - Each Miller value is mapped on load from the w basis to the Fq6
+//     tower (a re-indexing), where an Fq12 product is 54 Fq products
+//     (Karatsuba twice) and a square in the cyclotomic subgroup 18
+//     (Granger-Scott), used for the 315 squares of the hard part's powers
+//     by |x|.  A final exponentiation is 8,208 Fq products instead of
+//     22,857.
+//   - The products of each op are spread over the lanes, one Fq product
+//     each: a cyclotomic square is one round, an Fq12 product two.  The
+//     critical path is 913 Fq products per final exponentiation, about
+//     half of them the Fermat inverse, which one lane runs alone.
+//   - The Fq12 product, the cyclotomic square, the Frobenius map and each
+//     lane's part product are out-of-line functions, one copy each, so
+//     the code the final exponentiation loops over stays in the
+//     instruction cache.  Only the frame of the inverse remains (under
+//     1 KB, ptxas -v in PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,7 +60,6 @@ using fq::Fq2;
 
 constexpr int kThreads = 32;
 constexpr int kPairLimbs = 12 * fq::kLimbs;  // (6, 2, 36) limbs of one Fq12
-constexpr int kGammas = fq12::kGammaSlots * 6;
 
 __global__ void __launch_bounds__(kThreads)
 pair_miller(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
@@ -69,19 +78,20 @@ pair_miller(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
   fq12::to_port12(pairing::miller_value(p, q), out + static_cast<int64_t>(i) * kPairLimbs);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One warp per subset (tower.cuh): the subset's state in shared memory,
+// the Fq products of each Fq12 op across the lanes.
+__global__ void __launch_bounds__(tower::kLanes)
 pair_final(const int64_t* __restrict__ fs, const int32_t* __restrict__ offsets,
-           const int32_t* __restrict__ members, int n_sub, const int64_t* __restrict__ gammas,
+           const int32_t* __restrict__ members, const int64_t* __restrict__ gammas,
            int32_t* __restrict__ ok) {
-  // The Frobenius constants, converted once per block.
-  __shared__ Fq2 gam[kGammas];
-  for (int t = threadIdx.x; t < kGammas; t += kThreads)
-    gam[t] = fq::from_port2(gammas + static_cast<int64_t>(t) * 2 * fq::kLimbs);
-  __syncthreads();
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= n_sub) return;
+  __shared__ Fq2 file[tower::kSlots];
+  __shared__ fq::Fq xch[tower::kParts];
+  const team::Team t{static_cast<int>(threadIdx.x), tower::kLanes, 0xffffffffu};
+  tower::load_gammas(t, file, gammas);
+  const int s = blockIdx.x;
   const int lo = offsets[s];
-  ok[s] = pairing::subset_is_one(fs, members + lo, offsets[s + 1] - lo, gam) ? 1 : 0;
+  const bool one = pairing::subset_is_one(t, file, xch, fs, members + lo, offsets[s + 1] - lo);
+  if (threadIdx.x == 0) ok[s] = one ? 1 : 0;
 }
 
 unsigned blocks(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
@@ -107,15 +117,15 @@ extern "C" int hbbft_pair_miller(const void* px, const void* py, const void* pz,
 }
 
 // fs: (n, 6, 2, 36) int64 Miller values; offsets: (n_sub + 1,) int32 into
-// members: (n,) int32 pair indices, subset by subset; gammas: (5, 6, 2, 36)
-// int64, the Frobenius constants for k = 1, 2, 4, 8, 10 in the port's
-// limbs; ok: (n_sub,) int32.  Same launch contract as above.
+// members: (n,) int32 pair indices, subset by subset; gammas: (2, 6, 2, 36)
+// int64, the Frobenius constants for k = 1, 2 in the port's limbs; ok:
+// (n_sub,) int32.  Same launch contract as above.
 extern "C" int hbbft_pair_final(const void* fs, const void* offsets, const void* members,
                                 int n_sub, const void* gammas, void* ok, void* stream) {
   if (n_sub <= 0) return 0;
-  pair_final<<<blocks(n_sub), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  pair_final<<<n_sub, tower::kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(fs), static_cast<const int32_t*>(offsets),
-      static_cast<const int32_t*>(members), n_sub, static_cast<const int64_t*>(gammas),
+      static_cast<const int32_t*>(members), static_cast<const int64_t*>(gammas),
       static_cast<int32_t*>(ok));
   return static_cast<int>(cudaGetLastError());
 }

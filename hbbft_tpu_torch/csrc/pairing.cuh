@@ -7,7 +7,9 @@
 //
 // Replaces, inside the kernels, hbbft_tpu/crypto/tpu/pairing.py
 // (g1_affine :288, g2_affine :297, miller_loop :196 with dbl_step :208
-// and add_step :226, final_exp_is_one :251, miller_product :304).
+// and add_step :226, final_exp_is_one :251, miller_product :304).  The
+// Miller loop keeps the port's w basis (fq12.cuh); the final
+// exponentiation runs over the Fq6 tower on a warp (tower.cuh).
 //
 // Like fq.cuh, every function is __host__ __device__ and goes through the
 // host check too (tests/test_torch_pair_host.py).
@@ -16,6 +18,7 @@
 
 #include "curve.cuh"
 #include "fq12.cuh"
+#include "tower.cuh"
 
 namespace pairing {
 
@@ -121,35 +124,64 @@ FQ12_CALL Fq12 miller_value(const G1& p, const G2& q) {
   return miller_loop(g1_affine(p), g2_affine(q));
 }
 
-// f^(3 (p^12 - 1) / r): the easy part f^((p^6 - 1)(p^2 + 1)), then the
-// hard part to the power 3 (p^4 - p^2 + 1) / r = (x - 1)^2 (x + p)
-// (x^2 + p^2 - 1) + 3 (pairing.py final_exp_is_one; its module notes
-// verify the identity).  That is e^3, not e: only is_one of it means
-// anything, and cubing is a bijection on the cyclotomic subgroup.
-FQ12_CALL Fq12 final_exp(const Fq12& f, const Fq2* gam) {
-  using namespace fq12;
-  const Fq12 f1 = mul(conj(f), inv(f, gam));
-  const Fq12 m = mul(frobenius(f1, 2, gam), f1);
-  const Fq12 a = mul(pow_x(m), conj(m));                       // m^(x-1)
-  const Fq12 b = mul(pow_x(a), conj(a));                       // a^(x-1)
-  const Fq12 c = mul(pow_x(b), frobenius(b, 1, gam));          // b^(x+p)
-  const Fq12 d = pow_x(pow_x(c));                              // c^(x^2)
-  const Fq12 g = mul(mul(d, frobenius(c, 2, gam)), conj(c));   // c^(x^2+p^2-1)
-  return mul(g, mul(sqr(m), m));                               // * m^3
+// ---------------------------------------------------------------------------
+// pair_final on a team of 32 lanes: the tower Fq12 of tower.cuh
+// ---------------------------------------------------------------------------
+
+// f^(3 (p^12 - 1) / r) for f at tower::kF, left at tower::kD: the easy part
+// f^((p^6 - 1)(p^2 + 1)), then the hard part to the power 3 (p^4 - p^2 + 1)
+// / r = (x - 1)^2 (x + p) (x^2 + p^2 - 1) + 3 (pairing.py
+// final_exp_is_one; its module notes verify the identity).  That is e^3,
+// not e: only is_one of it means anything, and cubing is a bijection on
+// the cyclotomic subgroup.  Uses every value slot of the file.
+FQ_HD void final_exp(const team::Team& t, Fq2* R, Fq* X) {
+  using namespace tower;
+  inv(t, R, X, kV, kF);
+  conj(t, R, kU, kF);
+  mul(t, R, X, kF, kU, kV);  // f1 = f^(p^6 - 1)
+  frobenius(t, R, X, kM, kF, 2);
+  mul(t, R, X, kM, kM, kF);  // m = f1^(p^2 + 1)
+  // safety: cyclotomic squares (pow_x, cyc_sqr) from here on.  For f != 0,
+  // m = f^((p^6 - 1)(p^2 + 1)) lies in the cyclotomic subgroup, and so does
+  // every value below: products, conj and Frobenius maps of its elements.
+  // For f = 0 (a zero Miller value), Fermat gives 0^-1 = 0, so f1 = m = 0;
+  // the Granger-Scott square of 0 is 0, every product with it is 0, and
+  // is_one(0) is false, as the plain stage's verdict.
+  pow_x(t, R, X, kA, kM);
+  conj(t, R, kU, kM);
+  mul(t, R, X, kA, kA, kU);  // a = m^(x - 1)
+  pow_x(t, R, X, kB, kA);
+  conj(t, R, kU, kA);
+  mul(t, R, X, kB, kB, kU);  // b = a^(x - 1)
+  pow_x(t, R, X, kC, kB);
+  frobenius(t, R, X, kU, kB, 1);
+  mul(t, R, X, kC, kC, kU);  // c = b^(x + p)
+  pow_x(t, R, X, kU, kC);
+  pow_x(t, R, X, kD, kU);    // d = c^(x^2)
+  frobenius(t, R, X, kU, kC, 2);
+  mul(t, R, X, kD, kD, kU);
+  conj(t, R, kU, kC);
+  mul(t, R, X, kD, kD, kU);  // g = d c^(p^2) c^-1
+  cyc_sqr(t, R, X, kU, kM);
+  mul(t, R, X, kU, kU, kM);
+  mul(t, R, X, kD, kD, kU);  // g m^3
 }
 
 // One subset's verdict: the product of its pairs' Miller values in the
 // order given, one final exponentiation, is_one.  ``fs`` holds (n, 6, 2,
-// 36) port limbs; ``members`` the subset's pair indices.
-FQ12_CALL bool subset_is_one(const int64_t* fs, const int32_t* members, int count,
-                             const Fq2* gam) {
+// 36) port limbs; ``members`` the subset's pair indices.  The Frobenius
+// constants are loaded (tower::load_gammas).
+FQ_HD bool subset_is_one(const team::Team& t, Fq2* R, Fq* X, const int64_t* fs,
+                         const int32_t* members, int count) {
   constexpr int kPairLimbs = 12 * fq::kLimbs;
-  Fq12 acc = fq12::one();
-  for (int t = 0; t < count; ++t) {
-    const Fq12 f = fq12::from_port12(fs + static_cast<int64_t>(members[t]) * kPairLimbs);
-    acc = t == 0 ? f : fq12::mul(acc, f);
+  if (count == 0) tower::set_one(t, R, tower::kF);
+  for (int k = 0; k < count; ++k) {
+    const int64_t* f = fs + static_cast<int64_t>(members[k]) * kPairLimbs;
+    tower::load(t, R, k == 0 ? tower::kF : tower::kL, f);
+    if (k > 0) tower::mul(t, R, X, tower::kF, tower::kF, tower::kL);
   }
-  return fq12::is_one(final_exp(acc, gam));
+  final_exp(t, R, X);
+  return tower::is_one(R, tower::kD);
 }
 
 }  // namespace pairing

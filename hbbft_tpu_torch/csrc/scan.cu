@@ -7,8 +7,9 @@
 //
 //   scan_g1_rows  one thread per G1 row: [c]P by the 128-step LSB-first
 //                 scan, and phi(P) == -[x^2]P from the same doubling chain;
-//   scan_g2_rows  one thread per G2 row: [c]Q by the 65-step two-scalar
-//                 MSB scan (c = q |x| + s), and psi(Q) == -[|x|]Q;
+//   scan_g2_rows  a team of six lanes per G2 row, in two warps: one warp's
+//                 teams compute [c]Q by the 65-step two-scalar MSB scan (c
+//                 = q |x| + s), the other's psi(Q) == -[|x|]Q;
 //   scan_g1_sums, scan_g2_sums
 //                 one thread per piece: the sum of a contiguous run of
 //                 points.  Blocks cannot carry a sum across, so a segment
@@ -21,18 +22,43 @@
 // A row whose check is masked in (chk != 0) and fails clears its subset's
 // sub_ok word; all writers write the same 0.
 //
-// What bounds it: 32-bit multiply-adds, 588 per Fq product (fq.cuh).  A G1
-// row needs about 128 doublings (7 products), popcount(c) + 16 additions
-// (16 products) and the check; a G2 row about 128 doublings and additions
-// of Fq2 points (3 products per Fq2 product).  chip_smoke.py counts the
-// products these inputs need.  Bytes are a few hundred per row.
+// What bounds it: 32-bit multiply-adds, 588 per Fq product and at least
+// 456 per Fq square (the kernels square with the product; fq.cuh says
+// why).  A G1 row needs about 128 doublings (2 products and 5
+// squares), popcount(c) + 16 additions (12 and 4) and the check; a G2 row
+// about 128 doublings and additions of Fq2 points (3 products per Fq2
+// product, 2 per Fq2 square).  chip_smoke.py counts what these inputs
+// need.  Bytes are a few hundred per row.
 //
-// The first design keeps a whole row in one thread.  A G2 thread holds
-// acc, Q, -psi(Q) and Q - psi(Q), 4 x 73 words, past the 255-register
-// limit, so it spills (ptxas -v reports it) and its point functions are
-// calls, not inlined copies, to keep the code small.  At 2,048 rows a
-// launch fills 16 blocks of 128 threads on 132 SMs; occupancy and the
-// chunk size are later work.
+// scan_g1_rows and the sum kernels keep a whole row or piece in one
+// thread; their point functions are calls, not inlined copies.  What held
+// the first scan_g2_rows back (12.6 ms a chunk on an H100) was one
+// thread's chain of ~4,420 Fq products per row, each an out-of-line call
+// on spilled state (a 3,912-byte frame), on 16 of the 132 SMs.  Its
+// redesign (curve.cuh, g2team; team.cuh):
+//
+//   - The RLC scan and the check chain do not depend on each other, so
+//     they run in different warps (blocks of one warp: rows 5w..5w+4 scan
+//     in block w, check in block W + w).  2,048 rows are 820 warps, about
+//     6 on each of the 132 SMs.
+//   - A row's points live in shared memory (35 Fq2 slots); its team of six
+//     lanes splits every Fq2 product into its Karatsuba parts, one Fq
+//     product per lane, and runs the independent products of a step
+//     together: a doubling is 3 rounds of products, an addition 8.  The
+//     critical path of a row is 731 Fq products instead of ~4,420
+//     (chip_smoke.py's G2_ROW_PATH; the host check counts it).  Teams of
+//     twelve lanes (an addition in 5 rounds, two rows a warp) ran 1.6
+//     times slower: twice the warps issue about twice the instructions,
+//     so the card's issue rate rather than the chain looks to set the
+//     time.
+//   - Everything a lane keeps is a few Fq values: no spills, a frame of
+//     a few hundred bytes for the calls (ptxas -v in PERF.md).  Each
+//     part's product is one out-of-line function: inlined at every
+//     bundle, the loop over a row's 65 steps held a dozen copies of the
+//     CIOS code, more than the instruction cache keeps, and ran 1.7 times
+//     slower.  The formulas run branch-free (an addition with an identity
+//     operand is computed and routed away), so the rows of a warp stay in
+//     step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -130,21 +156,50 @@ scan_g1_rows(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
   if (!in_subgroup && chk[i] != 0) sub_ok[row_sub[i]] = 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Five rows per warp, one team of six lanes per row (g2team in
+// curve.cuh).  Blocks [0, w) run the rows' RLC scans, blocks [w, 2w) their
+// subgroup checks, w = ceil(n / 5): the two chains of a row do not depend
+// on each other.  The last warp's spare teams repeat row n - 1 and write
+// nothing.
+constexpr int kG2RowsPerWarp = 5;
+constexpr int kG2Threads = 32;
+constexpr unsigned kG2Mask = (1u << (kG2RowsPerWarp * curve::g2team::kLanes)) - 1u;
+
+__global__ void __launch_bounds__(kG2Threads)
 scan_g2_rows(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
              const int64_t* __restrict__ z, const int64_t* __restrict__ inf,
              const uint32_t* __restrict__ sq, const int32_t* __restrict__ chk,
              const int32_t* __restrict__ row_sub, int n, uint32_t* __restrict__ scaled,
              int32_t* __restrict__ sub_ok) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+  __shared__ Fq2 file[kG2RowsPerWarp][curve::g2team::kSlots];
+  __shared__ Fq xch[kG2RowsPerWarp][curve::g2team::kLanes];
+  const int team_id = threadIdx.x / curve::g2team::kLanes;
+  if (team_id >= kG2RowsPerWarp) return;
+  const int warps = (n + kG2RowsPerWarp - 1) / kG2RowsPerWarp;
+  const bool check = static_cast<int>(blockIdx.x) >= warps;
+  const int first = (check ? blockIdx.x - warps : blockIdx.x) * kG2RowsPerWarp;
+  const bool owner = first + team_id < n;
+  const int i = owner ? first + team_id : n - 1;
+  const team::Team t{static_cast<int>(threadIdx.x) % curve::g2team::kLanes,
+                     curve::g2team::kLanes, kG2Mask};
+  Fq2* R = file[team_id];
+  Fq* X = xch[team_id];
   const int64_t o = static_cast<int64_t>(i) * 2 * fq::kLimbs;
-  const G2 base{fq::from_port2(x + o), fq::from_port2(y + o), fq::from_port2(z + o),
-                inf[i] != 0 ? 1u : 0u};
-  bool in_subgroup;
-  const G2 s = curve::rlc_g2_row(base, sq + 5 * static_cast<int64_t>(i), &in_subgroup);
-  store(s, scaled + static_cast<int64_t>(i) * kG2Rec);
-  if (!in_subgroup && chk[i] != 0) sub_ok[row_sub[i]] = 0;
+  curve::g2team::load(t, R, x + o, y + o, z + o);
+  const uint32_t base_inf = inf[i] != 0 ? 1u : 0u;
+  if (check) {
+    const bool ok = curve::g2team::check_row(t, R, X, base_inf);
+    if (owner && t.lane == 0 && !ok && chk[i] != 0) sub_ok[row_sub[i]] = 0;
+    return;
+  }
+  const uint32_t acc_inf =
+      curve::g2team::scan_row(t, R, X, base_inf, sq + 5 * static_cast<int64_t>(i));
+  if (!owner) return;
+  // The record as store() lays it out: lane l writes words [12 l, 12 l + 12).
+  uint32_t* rec = scaled + static_cast<int64_t>(i) * kG2Rec;
+  store_fq(team::comp(R[curve::g2team::kP3 + (t.lane >> 1)], t.lane & 1),
+           rec + fq::kWords * t.lane);
+  if (t.lane == 0) rec[6 * fq::kWords] = acc_inf;
 }
 
 // Piece p sums records [starts[p], starts[p+1]).  With ox == nullptr the
@@ -203,7 +258,8 @@ extern "C" int hbbft_scan_g2_rows(const void* x, const void* y, const void* z, c
                                   const void* sq, const void* chk, const void* row_sub, int n,
                                   void* scaled, void* sub_ok, void* stream) {
   if (n <= 0) return 0;
-  scan_g2_rows<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned warps = static_cast<unsigned>((n + kG2RowsPerWarp - 1) / kG2RowsPerWarp);
+  scan_g2_rows<<<2 * warps, kG2Threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x), static_cast<const int64_t*>(y),
       static_cast<const int64_t*>(z), static_cast<const int64_t*>(inf),
       static_cast<const uint32_t*>(sq), static_cast<const int32_t*>(chk),

@@ -4,7 +4,9 @@
 A CUDA kernel does not run here, but its headers are ``__host__
 __device__`` code: ``csrc/host_check.cc`` includes them and is compiled
 with the host C++ compiler into a temporary directory, and these tests
-drive it.  On the card the same headers run, with the Montgomery rows as
+drive it.  The G2 rows run as ``scan_g2_rows`` runs them, on teams of
+lanes (``csrc/team.cuh``), the lanes of a stage one after another.  On
+the card the same headers run, with the Montgomery rows as
 PTX carry chains instead of ``uint64_t``; ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold the kernels against the plain versions there.
 
@@ -227,6 +229,21 @@ def test_row_scans_match_oracle(host_check, group):
             assert inf == 0 and oc.jac_eq(ops, pt, oc.jac_mul(ops, jac, c)), k
     assert verdicts == [member(j) for j in jacs]
     assert verdicts == [True, True, True, True, False, False, True]
+
+
+def test_g2_row_product_counts_match_chip_smoke(host_check):
+    """``chip_smoke.py``'s products of one G2 row and the critical path it
+    gives for ``scan_g2_rows`` (the RLC scan's warp; the check chain runs
+    beside it in another warp) are what the team code runs, whatever the
+    row's data: every step runs the same stages."""
+    import chip_smoke as cs
+
+    jacs, coeffs, _ = _row_cases("g2")
+    lines = ["N"]
+    for k in (0, 3, 4):  # a genuine point, the identity, the forged point
+        lines += [_g2_line(jacs[k], coeffs[k]), "N"]
+    counts = [tuple(row) for line, row in zip(lines, host_check(lines)) if line == "N"][1:]
+    assert counts == [(cs.G2_ROW_PRODUCTS, cs.G2_ROW_PATH)] * 3
 
 
 def _scan_subsets():

@@ -1,11 +1,12 @@
-"""The pair stage's kernel arithmetic (``csrc/fq12.cuh``, ``csrc/pairing.cuh``
-and the Fq/Fq2 inverses of ``csrc/fq.cuh``) on the CPU, and the host layout
-of ``crypto/device/pair.py``.
+"""The pair stage's kernel arithmetic (``csrc/fq12.cuh``, ``csrc/tower.cuh``,
+``csrc/pairing.cuh`` and the Fq/Fq2 inverses of ``csrc/fq.cuh``) on the
+CPU, and the host layout of ``crypto/device/pair.py``.
 
 ``csrc/host_check.cc`` includes the kernels' headers and is built with the
 host C++ compiler (as in ``tests/test_torch_kernel_host.py``); its ``ML``
-and ``PF`` requests run the very functions each ``pair_miller`` and
-``pair_final`` thread runs.  They are held against Python integers, the
+and ``PF`` requests run the very functions each ``pair_miller`` thread and
+each ``pair_final`` warp runs, the warp's lanes one after another between
+its barriers.  They are held against Python integers, the
 BLS oracle (``crypto/bls/pairing.py``), the port's plain pairing
 (``crypto/device/pairing.py``, ``backend.pair_stage_plain``) and the JAX
 package's ``pairing_product_is_one``.  On the card
@@ -98,26 +99,63 @@ def test_inverses_match_python_ints(host_check):
 
 
 def test_fq12_ops_match_oracle_and_plain(host_check):
+    """pair_miller's w-basis ops and pair_final's tower ops (run by the
+    host build lane after lane) against the oracle."""
     rng = random.Random(12)
     cases = [(_rand_fq12(rng), _rand_fq12(rng)) for _ in range(3)]
     cases.append((OF.FQ12_ONE, _rand_fq12(rng)))
+    cases.append((OF.FQ12_ZERO, _rand_fq12(rng)))
     lines = [_gam_line()] + [f"F12 {_ints(_fq12_limbs(a))} {_ints(_fq12_limbs(b))}"
                              for a, b in cases]
     out = host_check(lines)[1:]
     zero = (0, 0)
     for (a, b), row in zip(cases, out):
-        got = [_fq12_value(row[432 * k: 432 * (k + 1)]) for k in range(11)]
+        got = [_fq12_value(row[432 * k: 432 * (k + 1)]) for k in range(8)]
         sparse = (b[0], zero, b[2], b[3], zero, zero)
-        want = [OF.fq12_mul(a, b), OF.fq12_sqr(a), OF.fq12_mul(a, sparse),
-                OF.fq12_conjugate(a)]
+        want = [OF.fq12_sqr(a), OF.fq12_mul(a, sparse), OF.fq12_conjugate(a),
+                OF.fq12_mul(a, b), OF.fq12_conjugate(a)]
         want += [OF.fq12_frobenius(a, k) for k in dpair.GAMMA_KS]
-        want += [OF.fq12_inv(a), OF.fq12_pow(a, -OF.BLS_X)]
+        want.append(OF.fq12_inv(a) if a != OF.FQ12_ZERO else OF.FQ12_ZERO)
         assert got == want
         assert row[-1] == (a == OF.FQ12_ONE)
     # conj without gamma constants equals the plain frobenius(a, 6).
     a = cases[0][0]
-    assert _fq12_value(out[0][432 * 3: 432 * 4]) == _plain_value(
+    assert _fq12_value(out[0][432 * 2: 432 * 3]) == _plain_value(
         tp.frobenius(torch.as_tensor(_fq12_limbs(a)), 6))
+
+
+def test_tower_map_round_trips(host_check):
+    """w basis -> tower slots (g0 g1 g2 h0 h1 h2 = c0 c2 c4 c1 c3 c5) -> w
+    basis gives the value back."""
+    rng = random.Random(13)
+    for a in (_rand_fq12(rng), OF.FQ12_ONE):
+        row = host_check([f"TW {_ints(_fq12_limbs(a))}"])[0]
+        slots = _fq12_value(row[:432])
+        assert slots == tuple(a[i] for i in (0, 2, 4, 1, 3, 5))
+        assert _fq12_value(row[432:]) == a
+
+
+def _easy_part(a):
+    """a^((p^6 - 1)(p^2 + 1)): a value of the cyclotomic subgroup."""
+    f1 = OF.fq12_mul(OF.fq12_conjugate(a), OF.fq12_inv(a))
+    return OF.fq12_mul(OF.fq12_frobenius(f1, 2), f1)
+
+
+def test_cyclotomic_square_matches_generic_square(host_check):
+    """On values after the easy part the Granger-Scott square equals the
+    tower product f f and the oracle's square, and the power by x built on
+    it equals the oracle's; on a value outside the subgroup it does not."""
+    rng = random.Random(14)
+    cyc = [_easy_part(_rand_fq12(rng)) for _ in range(2)] + [OF.FQ12_ONE]
+    out = host_check([f"CS {_ints(_fq12_limbs(f))}" for f in cyc])
+    for f, row in zip(cyc, out):
+        square, product, power = (_fq12_value(row[432 * k: 432 * (k + 1)]) for k in range(3))
+        assert square == product == OF.fq12_sqr(f)
+        assert power == OF.fq12_inv(OF.fq12_pow(f, -OF.BLS_X))
+    outside = _rand_fq12(rng)
+    row = host_check([f"CS {_ints(_fq12_limbs(outside))}"])[0]
+    assert _fq12_value(row[:432]) != OF.fq12_sqr(outside)
+    assert _fq12_value(row[432:864]) == OF.fq12_sqr(outside)
 
 
 def _bls_pairs():
@@ -221,7 +259,7 @@ def test_subset_members_is_the_plain_product_order():
 
 @low_priority
 def test_pair_final_and_cpu_route_match_plain_stage(host_check, stage):
-    """pair_final's per-thread verdicts on the CSR layout and the CPU
+    """pair_final's per-subset verdicts on the CSR layout and the CPU
     route of ``backend.pair_stage`` (plain, no launch) agree with each
     other and with the oracle."""
     g1s, g2s, pair_sub, want, lhs, rhs, kernel_fs, _ = stage
@@ -230,6 +268,14 @@ def test_pair_final_and_cpu_route_match_plain_stage(host_check, stage):
     out = host_check([_gam_line(), f"PF {len(g1s)} {n_sub} {_ints(kernel_fs)} "
                       f"{_ints(offsets)} {_ints(members)}"])[1]
     assert [bool(v) for v in out] == want
+    # A zero Miller value (Fermat's 0^-1 = 0 keeps it 0 through the easy
+    # part, outside the cyclotomic subgroup) gives False, alone or in a
+    # product, as the plain final exponentiation does.
+    zero_fs = np.concatenate([np.zeros((1, 6, 2, NL), dtype=np.int64), kernel_fs[:2]])
+    out = host_check([_gam_line(), f"PF 3 2 {_ints(zero_fs)} 0 1 3 0 1 2"])[1]
+    assert out == [0, 0]
+    with torch.inference_mode():
+        assert not bool(tp.final_exp_is_one(torch.zeros((6, 2, NL), dtype=torch.int64)))
     with torch.inference_mode():
         build.reset_launches()
         assert dbackend.pair_stage(lhs, rhs, pair_sub, n_sub).tolist() == want
@@ -262,27 +308,31 @@ def test_plain_stage_matches_jax_pairing_product():
 
 
 def test_product_counts_match_chip_smoke_chains(host_check, stage):
-    """The Fq products ``chip_smoke.py`` gives as each K3 thread's serial
-    chain are the products the kernels' code runs (host build, counted in
-    ``fq.cuh``'s portable product); its bounds count less, on the same
-    schedule of |x|."""
-    import chip_smoke
+    """The Fq products ``chip_smoke.py`` gives as each K3 kernel's serial
+    chain (pair_miller: one thread's products; pair_final: the critical
+    path of its warp, each lane's products counted on the longest chain of
+    stages) and as pair_final's whole work are the products the kernels'
+    code runs (host build, counted in ``fq.cuh``'s portable product); its
+    bounds count less, on the same schedule of |x|."""
+    import chip_smoke as cs
 
     g1s, g2s, _, _, _, _, kernel_fs, _ = stage
     lines = ["N", _ml_line(g1s[0], g2s[0]), "N", _ml_line((1, 1, 0), g2s[0]), "N",
              _gam_line(), "N", f"FE {_ints(kernel_fs[0])}", "N",
              f"PF 3 1 {_ints(kernel_fs[:3])} 0 3 0 1 2", "N"]
-    counts = [row[0] for line, row in zip(lines, host_check(lines)) if line == "N"][1:]
+    counts = [tuple(row) for line, row in zip(lines, host_check(lines)) if line == "N"][1:]
     miller, identity, gammas, fe, pf3 = counts
-    read = chip_smoke.FQ12_READ_PRODUCTS
-    assert miller == chip_smoke.MILLER_PRODUCTS
-    assert identity == chip_smoke.MILLER_IDENTITY_PRODUCTS
-    assert gammas == chip_smoke.GAMMA_PRODUCTS
-    assert fe == chip_smoke.FINAL_EXP_PRODUCTS + 2 * read  # read f, write the result
-    assert pf3 == chip_smoke.FINAL_EXP_PRODUCTS + 3 * read + 2 * chip_smoke.FQ12_MUL_PRODUCTS
+    assert miller == (cs.MILLER_PRODUCTS, cs.MILLER_PRODUCTS)  # one thread
+    assert identity == (cs.MILLER_IDENTITY_PRODUCTS,) * 2
+    assert gammas == (cs.GAMMA_PRODUCTS, 1)  # one conversion per lane
+    # FE reads f on 12 lanes and writes the result on one thread.
+    read, write = 12, 12
+    assert fe == (cs.FINAL_EXP_PRODUCTS + read + write, cs.FINAL_EXP_PATH + 1 + write)
+    assert pf3 == (cs.FINAL_EXP_PRODUCTS + 3 * read + 2 * cs.FQ12_MUL_PRODUCTS,
+                   cs.FINAL_EXP_PATH + 3 * cs.FQ12_READ_PATH + 2 * cs.FQ12_MUL_PATH)
     # The bounds' Miller loop and powers by |x| follow the plain schedule:
     # 63 doublings (squares) and an addition (product) at 5 set bits.
     assert sum(n for n, _ in tp.X_RUNS) == 63
     assert sum(1 for _, add in tp.X_RUNS if add) == 5
-    assert chip_smoke.MILLER_NEED + chip_smoke.AFFINE_NEED[0] < miller
-    assert chip_smoke.FINAL_EXP_NEED < chip_smoke.FINAL_EXP_PRODUCTS
+    assert cs.MILLER_NEED + cs.AFFINE_NEED[0] < miller[0]
+    assert cs.FINAL_EXP_NEED < cs.FINAL_EXP_PRODUCTS
