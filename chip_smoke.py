@@ -93,13 +93,19 @@ PSI = 2 * 3  # two Fq2 products
 # tests/test_torch_pair_host.py count them on the host build of the same
 # code), as (all products, critical path).  The critical path is the
 # products of the longest chain: one thread's products where a thread runs
-# alone; for the lane-team kernels, each stage's busiest lane.  A G2 row
-# of scan_g2_rows (both its warps; the path is the RLC scan's warp); a
+# alone; for the lane-team kernels, each stage's busiest lane (and the
+# busiest team and block).  A G1 row of scan_g1_rows (the RLC addition at
+# every step, its limb conversions in); scan_g2_sums' two launches at a
+# firehose chunk (2,048 rows in one segment, pieces of 32: 2,047 G2
+# additions, 11 tree levels of 8 rounds, and the output conversions);
+# a G2 row of scan_g2_rows (both its warps; the path is the RLC scan's warp); a
 # pair_miller thread, with both affine inversions and the limb
 # conversions, or one whose pair has an identity side; pair_final's final
 # exponentiation, reading one Miller value, and one Fq12 product; the
 # Frobenius constants each warp of pair_final converts.  The paths explain
 # the kernels' times; the bounds count the work below instead.
+G1_ROW_PRODUCTS, G1_ROW_PATH = 3_221, 660
+G2_SUMS_PRODUCTS, G2_SUMS_PATH = 90_074, 89
 G2_ROW_PRODUCTS, G2_ROW_PATH = 5_268, 731
 MILLER_PRODUCTS, MILLER_IDENTITY_PRODUCTS = 10_441, 21
 FINAL_EXP_PRODUCTS, FINAL_EXP_PATH = 8_208, 913
@@ -438,6 +444,14 @@ def phase_scan(card: str, firehose: list, mixed: list) -> list:
             dscan.G2_SUMS: lambda: dbackend._masked_sums(dc.G2_OPS, p_scaled2, g2_sub),
         }
         work = _scan_work(inp)
+        rows1, rows2 = inp.g1_words.shape[0], inp.g2_words.shape[0]
+        # The lane-team kernels' own work and critical path (host-counted
+        # constants; the G2 sums' are those of this chunk's layout).
+        team_work = {
+            dscan.G1_ROWS: (G1_ROW_PRODUCTS * rows1, G1_ROW_PATH),
+            dscan.G2_ROWS: (G2_ROW_PRODUCTS * rows2, G2_ROW_PATH),
+            dscan.G2_SUMS: (G2_SUMS_PRODUCTS, G2_SUMS_PATH),
+        }
         out = []
         for name in dscan.KERNELS:
             fn, repeats = timed[name]
@@ -445,10 +459,11 @@ def phase_scan(card: str, firehose: list, mixed: list) -> list:
             plain_ms = cuda_time_ms(plain[name], 1)
             n_bytes, products, squares = work[name]
             bound_ms, bound_by = bound(n_bytes, products * FQ_MUL_IMAD + squares * FQ_SQR_IMAD)
-            rows2 = inp.g2_words.shape[0]
-            chain = (f"; the kernel's work {G2_ROW_PRODUCTS * rows2} Fq products, its critical "
-                     f"path {G2_ROW_PATH} = {ms * 1e3 / G2_ROW_PATH:.3f} us per product"
-                     if name == dscan.G2_ROWS else "")
+            chain = ""
+            if name in team_work:
+                products_run, path = team_work[name]
+                chain = (f"; the kernel's work {products_run} Fq products, its critical path "
+                         f"{path} = {ms * 1e3 / path:.3f} us per product")
             log(f"{name} at one firehose chunk: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}; {products} Fq products and {squares} squares, "
                 f"{n_bytes} bytes){chain}  [{card}]")

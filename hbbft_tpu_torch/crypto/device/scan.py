@@ -14,9 +14,12 @@ The kernel takes its inputs in its own layout, made on the host by
 * the G1 rows ordered by leg (legs are numbered subset by subset, so this
   is the (subset, leg) order) and the G2 rows by subset, so every sum is
   a contiguous range of rows;
-* each sum cut into pieces of at most :data:`PIECE_ROWS` rows: the first
-  sum launch adds the rows of each piece, the second the pieces of each
-  segment (blocks cannot carry a sum across).
+* each sum cut into pieces of at most :data:`PIECE_ROWS` rows that never
+  cross a segment: the first sum launch adds the rows of each piece, the
+  second the pieces of each segment (blocks cannot carry a sum across).
+  ``scan_g1_sums`` runs a thread per piece or segment, ``scan_g2_sums`` a
+  block, whose teams of six lanes add its points by a pairwise tree (64
+  points at a time; a segment of more pieces is summed 63 more at a time).
 
 :func:`scan_stage_kernel` checks device, dtype, shape and contiguity,
 launches the four kernels and counts each launch in
@@ -44,7 +47,7 @@ G1_SUMS = "scan_g1_sums"
 G2_SUMS = "scan_g2_sums"
 KERNELS = (G1_ROWS, G2_ROWS, G1_SUMS, G2_SUMS)
 
-PIECE_ROWS = 32  # rows one thread adds in the first sum launch
+PIECE_ROWS = 32  # rows of a piece: one G1 thread's, one G2 block's
 G1_REC = 3 * 12 + 1  # 32-bit words of one internal G1 point record
 G2_REC = 6 * 12 + 1
 

@@ -4,7 +4,8 @@
 // so a kernel row and the plain scan give the same points.
 //
 // Like fq.cuh, every function is __host__ __device__: the host check in
-// tests/test_torch_kernel_host.py runs these row scans against the oracle.
+// tests/test_torch_kernel_host.py runs these row scans and the G2 tree sum
+// against the oracle, the lanes and teams one after another.
 //
 // add_unsafe is WRONG when both inputs are the same non-identity point or
 // exact negatives.  Every call below carries a "// safety:" line naming the
@@ -51,23 +52,10 @@ FQ_HD Jac<F> identity() {
   return Jac<F>{one, one, zero_of((const F*)nullptr), 1u};
 }
 
-// Jacobian doubling on a = 0 curves (curve.py double :74).  Correct for all
-// inputs: the subgroup has prime order, so y = 0 never occurs on valid
-// points, and the identity flag rides through unchanged (z' = 2yz keeps 0).
-template <class F>
-CURVE_CALL Jac<F> jac_double(const Jac<F>& p) {
-  using namespace fq;
-  const F a = sqr(p.x);
-  const F b = sqr(p.y);
-  const F c = sqr(b);
-  const F d = small_mul<2>(sub(sub(sqr(add(p.x, b)), a), c));
-  const F e = small_mul<3>(a);
-  const F f = sqr(e);
-  const F x3 = sub(f, small_mul<2>(d));
-  const F y3 = sub(mul(e, sub(d, x3)), small_mul<8>(c));
-  const F z3 = small_mul<2>(mul(p.y, p.z));
-  return Jac<F>{x3, y3, z3, p.inf};
-}
+// Jacobian doubling on a = 0 curves (curve.py double :74), addition
+// (add_unsafe :107) and projective equality (jac_eq_dev :183) are the
+// formulas of the team code below; jac_add_unsafe is also scan_g1_sums'
+// one-thread addition.
 
 // General Jacobian addition (curve.py add_unsafe :107).  Identity flags are
 // routed: an identity p gives q, an identity q gives p.  p == +-q is NOT
@@ -94,36 +82,12 @@ CURVE_CALL Jac<F> jac_add_unsafe(const Jac<F>& p, const Jac<F>& q) {
   return Jac<F>{x3, y3, z3, 0u};
 }
 
-// curve.py neg :158.
-template <class F>
-FQ_HD Jac<F> jac_neg(const Jac<F>& p) {
-  return Jac<F>{p.x, fq::neg(p.y), p.z, p.inf};
-}
-
-// Projective equality, cross-multiplied (curve.py jac_eq_dev :183).  A point
-// whose z is 0 but whose flag is unset (the garbage add_unsafe makes on
-// forbidden inputs) compares UNEQUAL to everything: checks fail closed.
-template <class F>
-CURVE_CALL bool jac_eq(const Jac<F>& p, const Jac<F>& q) {
-  using namespace fq;
-  const F z1z1 = sqr(p.z);
-  const F z2z2 = sqr(q.z);
-  const bool ex = is_zero(sub(mul(p.x, z2z2), mul(q.x, z1z1)));
-  const bool ey = is_zero(sub(mul(p.y, mul(q.z, z2z2)), mul(q.y, mul(p.z, z1z1))));
-  const bool z_ok = !is_zero(p.z) && !is_zero(q.z);
-  const bool both_fin = p.inf == 0 && q.inf == 0;
-  const bool both_inf = p.inf != 0 && q.inf != 0;
-  return both_inf || (both_fin && z_ok && ex && ey);
-}
-
 // GLV endomorphism on G1: X *= beta (curve.py phi_g1 :238).  beta in the
 // kernel's Montgomery form (x * 2^384 mod P).
 FQ_HD Fq g1_beta() {
   return Fq{{0x798a64e8u, 0x30f1361bu, 0x7ece5a2au, 0xf3b8ddabu, 0xc61577f7u, 0x16a8ca3au,
              0x74fd029bu, 0xc26a2ff8u, 0x60701c6eu, 0x3636b766u, 0x241b6160u, 0x051ba4abu}};
 }
-
-FQ_HD G1 phi_g1(const G1& p) { return G1{fq::mul(p.x, g1_beta()), p.y, p.z, p.inf}; }
 
 // The constants of the untwist-Frobenius-twist on G2, psi(X, Y, Z) = (cx
 // conj(X), cy conj(Y), conj(Z)) (curve.py psi_g2 :245), in the kernel's
@@ -142,8 +106,8 @@ FQ_HD Fq2 psi_cy() {
 }
 
 // ---------------------------------------------------------------------------
-// The static-endo flush scans, one row per call (curve.py
-// scalar_mul_rlc_g1 :341, scalar_mul_rlc_g2 :393, endo_subgroup_eq :258)
+// The static-endo flush scans (curve.py scalar_mul_rlc_g1 :341,
+// scalar_mul_rlc_g2 :393, endo_subgroup_eq :258)
 // ---------------------------------------------------------------------------
 
 // x^2 (128 bits, 17 set bits) and |x| (64 bits, 6 set bits), x = BLS_X.
@@ -157,53 +121,249 @@ FQ_HD bool bit_of(const uint32_t* words, int k) { return (words[k >> 5] >> (k & 
 
 FQ_HD bool xsq_bit(int k) { return ((k < 64 ? kXsqLo >> k : kXsqHi >> (k - 64)) & 1u) != 0; }
 
-// One G1 row: scaled = [c]P and the membership verdict phi(P) == -[x^2]P.
-// ``coeff`` holds c as 4 little-endian words.  LSB-first: one doubling
-// chain cur = [2^k]P serves both the RLC sum and the check chain.
-CURVE_CALL G1 rlc_g1_row(const G1& base, const uint32_t* coeff, bool* in_subgroup) {
-  G1 acc = identity<Fq>();
-  bool started = false;
-  G1 cur = base;
-  G1 chain = identity<Fq>();
-  bool have_chain = false;
-  for (int k = 0; k < kG1Bits; ++k) {
-    if (xsq_bit(k)) {
-      // safety: check-chain sub-mask argument (curve.py section notes,
-      // second bullet).  chain = [m1]P with m1 the sub-mask of x^2's bits
-      // below k, cur = [2^k]P with 2^k a disjoint sub-mask; coincidence
-      // needs m1 = +-2^k (mod r) with both < 2^128, impossible.  The
-      // argument holds for this running sum as for the plain tree sum.
-      chain = have_chain ? jac_add_unsafe(chain, cur) : cur;
-      have_chain = true;
-    }
-    if (bit_of(coeff, k)) {
-      // "acc is the identity" is exactly "no set bit yet": use the flag.
-      G1 a = acc;
-      a.inf = started ? 0u : 1u;
-      // safety: LSB-first RLC adds (curve.py section notes, first bullet):
-      // acc = (c mod 2^k) P meets 2^k P only if c mod 2^k = +-2^k (mod r),
-      // impossible below 2^128; small-order inputs fail closed (z = 0).
-      acc = jac_add_unsafe(a, cur);
-      started = true;
-    }
-    if (k + 1 < kG1Bits) cur = jac_double(cur);
-  }
-  acc.inf = (started ? 0u : 1u) | base.inf;
-  chain.inf |= base.inf;
-  *in_subgroup = jac_eq(phi_g1(base), jac_neg(chain));
-  return acc;
+// ---------------------------------------------------------------------------
+// One G1 row on a team of kLanes lanes (team.cuh), as scan_g1_rows runs it:
+// [c]P by the 128-step LSB-first scan and the verdict phi(P) == -[x^2]P
+// from the same doubling chain cur = [2^k]P.  The row's points live in a
+// file of Fq slots in shared memory.  An Fq product is one lane's, so a
+// round of products is one stage (no join).  Step k runs three formulas
+// side by side, none reading another's result: the RLC addition acc +
+// cur_k, the check-chain addition chain + cur_k (at x^2's 17 set bits) and
+// the doubling cur_{k+1} = 2 cur_k, written to the other of two slot sets.
+// An addition is 5 rounds of products (at most 4 of them a round), the
+// doubling 3 spread over the same 5, so a step is 5 rounds: 7 products
+// at most a round, 11 at a check step.
+// The formulas are curve.py's, product for product, so the points are the
+// same values as the plain scalar_mul_rlc_g1.
+// ---------------------------------------------------------------------------
+
+namespace g1team {
+
+using team::Team;
+
+constexpr int kLanes = 8;  // a step's largest bundle but a check step's
+constexpr int kRounds = 5;
+
+// Slots of a row's file: the base point P (x, y, z at 0, 1, 2), cur in
+// two sets (step k reads one and writes the other), acc, the check chain,
+// then each formula's temporaries (product k of a formula writes tmp + k).
+constexpr int kBase = 0;
+constexpr int kCur = 3;  // and kCur + 3
+constexpr int kAcc = 9;
+constexpr int kChain = 12;
+constexpr int kDblTmp = 15;
+constexpr int kAccTmp = 22;  // and the verdict's, after the scan
+constexpr int kChainTmp = 38;
+constexpr int kSlots = 54;
+
+// Formula kinds.
+constexpr int kNone = 0, kDbl = 1, kAdd = 2, kEq = 3;
+
+// One formula of a step: its kind, its points' first slots and its first
+// temporary.
+struct Form {
+  int kind, p, q, tmp;
+};
+
+// The products of each formula, numbered in the order of their rounds.
+// Doubling of p (curve.py double): A = x^2, B = y^2 | C = B^2, S = (x +
+// B)^2, F = E^2 with E = 3 A | M = E (D - X3) | - | YZ = y z.
+enum { kA, kB, kC, kS, kF, kM, kYZ };
+// Addition p + q (add_unsafe): Z11 = z1^2, Z22 = z2^2, Z12 = z1 z2 | U1 =
+// x1 Z22, U2 = x2 Z11, T1 = z2 Z22, T2 = z1 Z11 | S1 = y1 T1, S2 = y2 T2,
+// I = (2 H)^2 with H = U2 - U1 | J = H I, V = U1 I, R2 = RR^2 with RR =
+// 2 (S2 - S1), Z3 = 2 Z12 H | S1J = S1 J, Y3 = RR (V - X3).
+enum { kZ11, kZ22, kZ12, kU1, kU2, kT1, kT2, kS1, kS2, kI, kJ, kV, kR2, kZ3, kS1J, kY3 };
+// phi(p) == -q as jac_eq_dev: XB = x1 beta, Z11 = z1^2, Z22 = z2^2 | AX
+// = XB Z22, BX = x2 Z11, T1 = z2 Z22, T2 = z1 Z11 | C = y1 T1, D = -y2 T2.
+enum { kXB, kEZ11, kEZ22, kAX, kBX, kET1, kET2, kEC, kED };
+
+// Round r of a formula runs its products [start(kind, r), start(kind, r +
+// 1)): the six bounds packed 5 bits each.
+constexpr uint32_t pack5(int a, int b, int c, int d, int e, int f) {
+  return a | b << 5 | c << 10 | d << 15 | e << 20 | static_cast<uint32_t>(f) << 25;
+}
+constexpr uint32_t kDblRounds = pack5(kA, kC, kM, kYZ, kYZ, kYZ + 1);
+constexpr uint32_t kAddRounds = pack5(kZ11, kU1, kS1, kJ, kS1J, kY3 + 1);
+constexpr uint32_t kEqRounds = pack5(kXB, kAX, kEC, kED + 1, kED + 1, kED + 1);
+
+FQ_HD int start(int kind, int r) {
+  const uint32_t packed = kind == kDbl   ? kDblRounds
+                          : kind == kAdd ? kAddRounds
+                          : kind == kEq  ? kEqRounds
+                                         : 0u;
+  return static_cast<int>((packed >> (5 * r)) & 31u);
 }
 
+// The doubling's D = 2 (S - A - C) and X3 = F - 2 D.
+FQ_HD Fq dbl_d(const Fq* t) { return fq::small_mul<2>(fq::sub(fq::sub(t[kS], t[kA]), t[kC])); }
+FQ_HD Fq dbl_x3(const Fq* t) { return fq::sub(t[kF], fq::small_mul<2>(dbl_d(t))); }
+// The addition's H = U2 - U1, RR = 2 (S2 - S1) and X3 = R2 - J - 2 V.
+FQ_HD Fq add_h(const Fq* t) { return fq::sub(t[kU2], t[kU1]); }
+FQ_HD Fq add_rr(const Fq* t) { return fq::small_mul<2>(fq::sub(t[kS2], t[kS1])); }
+FQ_HD Fq add_x3(const Fq* t) { return fq::sub(fq::sub(t[kR2], t[kJ]), fq::small_mul<2>(t[kV])); }
+
+// Coordinate c of a formula's result from its temporaries.
+FQ_HD Fq dbl_out(const Fq* t, int c) {
+  return c == 0 ? dbl_x3(t)
+         : c == 1 ? fq::sub(t[kM], fq::small_mul<8>(t[kC]))
+                  : fq::small_mul<2>(t[kYZ]);
+}
+FQ_HD Fq add_out(const Fq* t, int c) {
+  return c == 0 ? add_x3(t) : c == 1 ? fq::sub(t[kY3], fq::small_mul<2>(t[kS1J])) : t[kZ3];
+}
+
+// Product k of formula f: its operands formed from the file, one Fq
+// product into slot f.tmp + k.  The one out-of-line product of the G1 row.
+TEAM_CALL void part(const Form& f, int k, Fq* R) {
+  using namespace fq;
+  const Fq* p = R + f.p;
+  const Fq* q = R + f.q;
+  Fq* t = R + f.tmp;
+  Fq a, b;
+  switch (f.kind * 16 + k) {
+    case kDbl * 16 + kA: a = b = p[0]; break;
+    case kDbl * 16 + kB: a = b = p[1]; break;
+    case kDbl * 16 + kC: a = b = t[kB]; break;
+    case kDbl * 16 + kS: a = b = add(p[0], t[kB]); break;
+    case kDbl * 16 + kF: a = b = small_mul<3>(t[kA]); break;
+    case kDbl * 16 + kM:
+      a = small_mul<3>(t[kA]);
+      b = sub(dbl_d(t), dbl_x3(t));
+      break;
+    case kDbl * 16 + kYZ: a = p[1]; b = p[2]; break;
+    case kAdd * 16 + kZ11: a = b = p[2]; break;
+    case kAdd * 16 + kZ22: a = b = q[2]; break;
+    case kAdd * 16 + kZ12: a = p[2]; b = q[2]; break;
+    case kAdd * 16 + kU1: a = p[0]; b = t[kZ22]; break;
+    case kAdd * 16 + kU2: a = q[0]; b = t[kZ11]; break;
+    case kAdd * 16 + kT1: a = q[2]; b = t[kZ22]; break;
+    case kAdd * 16 + kT2: a = p[2]; b = t[kZ11]; break;
+    case kAdd * 16 + kS1: a = p[1]; b = t[kT1]; break;
+    case kAdd * 16 + kS2: a = q[1]; b = t[kT2]; break;
+    case kAdd * 16 + kI: a = b = small_mul<2>(add_h(t)); break;
+    case kAdd * 16 + kJ: a = add_h(t); b = t[kI]; break;
+    case kAdd * 16 + kV: a = t[kU1]; b = t[kI]; break;
+    case kAdd * 16 + kR2: a = b = add_rr(t); break;
+    case kAdd * 16 + kZ3: a = small_mul<2>(t[kZ12]); b = add_h(t); break;
+    case kAdd * 16 + kS1J: a = t[kS1]; b = t[kJ]; break;
+    case kAdd * 16 + kY3:
+      a = add_rr(t);
+      b = sub(t[kV], add_x3(t));
+      break;
+    case kEq * 16 + kXB: a = p[0]; b = g1_beta(); break;
+    case kEq * 16 + kEZ11: a = b = p[2]; break;
+    case kEq * 16 + kEZ22: a = b = q[2]; break;
+    case kEq * 16 + kAX: a = t[kXB]; b = t[kEZ22]; break;
+    case kEq * 16 + kBX: a = q[0]; b = t[kEZ11]; break;
+    case kEq * 16 + kET1: a = q[2]; b = t[kEZ22]; break;
+    case kEq * 16 + kET2: a = p[2]; b = t[kEZ11]; break;
+    case kEq * 16 + kEC: a = p[1]; b = t[kET1]; break;
+    default: a = neg(q[1]); b = t[kET2]; break;  // kEq * 16 + kED
+  }
+  t[k] = mont_mul_in(a, b);
+}
+
+// Round r of up to three formulas (kind kNone for none).
+FQ_HD void run_round(const Team& t, Fq* R, int r, const Form& f0, const Form& f1, const Form& f2) {
+  const int lo0 = start(f0.kind, r), lo1 = start(f1.kind, r), lo2 = start(f2.kind, r);
+  team::fq_round(t, start(f0.kind, r + 1) - lo0, start(f1.kind, r + 1) - lo1,
+                 start(f2.kind, r + 1) - lo2, [&](int i, int k) {
+                   part(i == 0 ? f0 : i == 1 ? f1 : f2, k + (i == 0 ? lo0 : i == 1 ? lo1 : lo2),
+                        R);
+                 });
+}
+
+// The base point from the port's limbs ((36,) per coordinate at x, y, z),
+// one conversion (one product) per lane; acc and the chain start as (1, 1,
+// 0), the identity's coordinates.
+FQ_HD void load(const Team& t, Fq* R, const int64_t* x, const int64_t* y, const int64_t* z) {
+  t.stage(9, [&](int l) {
+    if (l < 3) {
+      R[kBase + l] = fq::from_port(l == 0 ? x : l == 1 ? y : z);
+      return;
+    }
+    const int c = l % 3;
+    R[(l < 6 ? kAcc : kChain) + c] = c < 2 ? fq::fq_one() : fq::fq_zero();
+  });
+}
+
+// [c]P into kAcc, its flag into *acc_inf, and the verdict phi(P) ==
+// -[x^2]P, for the loaded base; ``coeff`` holds c as 4 little-endian
+// words.  Branch-free: the RLC addition runs at every step and the last
+// stage of the step routes its result (a clear bit keeps acc, an identity
+// operand gives the other), so the rows of a warp stay in step.
+FQ_HD bool row(const Team& t, Fq* R, uint32_t base_inf, const uint32_t* coeff,
+               uint32_t* acc_inf) {
+  bool started = false;     // a set bit so far: acc is not the identity
+  uint32_t chain_inf = 1u;  // the chain's first addition routes to cur
+  for (int k = 0; k < kG1Bits; ++k) {
+    const int cur = k == 0 ? kBase : kCur + 3 * ((k - 1) & 1);
+    const int next = kCur + 3 * (k & 1);
+    const bool bit = bit_of(coeff, k), check = xsq_bit(k), dbl = k + 1 < kG1Bits;
+    // safety: LSB-first RLC adds (curve.py section notes, first bullet):
+    // acc = (c mod 2^k) P meets 2^k P only if c mod 2^k = +-2^k (mod r),
+    // impossible below 2^128; small-order inputs fail closed (z = 0).
+    const Form fa{kAdd, kAcc, cur, kAccTmp};
+    // safety: check-chain sub-mask argument (curve.py section notes,
+    // second bullet).  chain = [m1]P with m1 the sub-mask of x^2's bits
+    // below k, cur = [2^k]P with 2^k a disjoint sub-mask; coincidence
+    // needs m1 = +-2^k (mod r) with both < 2^128, impossible.  The
+    // argument holds for this running sum as for the plain tree sum.
+    const Form fc{check ? kAdd : kNone, kChain, cur, kChainTmp};
+    const Form fd{dbl ? kDbl : kNone, cur, cur, kDblTmp};
+    for (int r = 0; r < kRounds; ++r) run_round(t, R, r, fa, fc, fd);
+    // cur_{k+1}; acc and the chain routed: an identity sum so far gives
+    // cur, an identity cur (the base's flag) keeps the sum.
+    const int nd = dbl ? 3 : 0, nc = check ? 3 : 0;
+    t.stage(nd + 3 + nc, [&](int l) {
+      if (l < nd) {
+        R[next + l] = dbl_out(R + kDblTmp, l);
+        return;
+      }
+      l -= nd;
+      if (l < 3) {
+        if (bit && !started) R[kAcc + l] = R[cur + l];
+        if (bit && started && !base_inf) R[kAcc + l] = add_out(R + kAccTmp, l);
+        return;
+      }
+      l -= 3;
+      if (chain_inf) R[kChain + l] = R[cur + l];
+      if (!chain_inf && !base_inf) R[kChain + l] = add_out(R + kChainTmp, l);
+    });
+    started = started || bit;
+    if (check) chain_inf &= base_inf;
+  }
+  *acc_inf = (started ? 0u : 1u) | base_inf;
+  chain_inf |= base_inf;
+  // phi(P) == -chain.
+  const Form fe{kEq, kBase, kChain, kAccTmp};
+  const Form none{kNone, 0, 0, 0};
+  for (int r = 0; r < 3; ++r) run_round(t, R, r, fe, none, none);
+  const Fq* e = R + kAccTmp;
+  const bool ex = fq::is_zero(fq::sub(e[kAX], e[kBX]));
+  const bool ey = fq::is_zero(fq::sub(e[kEC], e[kED]));
+  // A z of 0 with the flag unset (add_unsafe's garbage on forbidden
+  // inputs) compares unequal to everything: the check fails closed.
+  const bool z_ok = !fq::is_zero(R[kBase + 2]) && !fq::is_zero(R[kChain + 2]);
+  const bool both_fin = base_inf == 0 && chain_inf == 0;
+  const bool both_inf = base_inf != 0 && chain_inf != 0;
+  return both_inf || (both_fin && z_ok && ex && ey);
+}
+
+}  // namespace g1team
+
 // ---------------------------------------------------------------------------
-// One G2 row on a team of six lanes (team.cuh), as scan_g2_rows runs it.
-// The row's points live in a file of Fq2 slots in shared memory; every Fq2
-// product is split into its Karatsuba parts, and the products of one step
-// that do not depend on each other run in one bundle (up to six parts): a
-// doubling is 3 rounds of products, an addition 8.
+// G2 points on teams of six lanes (team.cuh): one row of scan_g2_rows, or
+// one addition of scan_g2_sums' tree.  The points live in a file of Fq2
+// slots in shared memory; every Fq2 product is split into its Karatsuba
+// parts, and the products of one step that do not depend on each other
+// run in one bundle (up to six parts): a doubling is 3 rounds of
+// products, an addition 8.
 // The two chains of a row are independent, so scan_g2_rows gives each its
 // own warp: scan_row computes [c]Q, check_row the subgroup verdict.
-// The formulas are those of jac_double, jac_add_unsafe and jac_eq above,
-// in the same order, so the points are the same values.
+// The formulas are curve.py's double, add_unsafe and jac_eq_dev, in the
+// same order, so the points are the same values.
 // ---------------------------------------------------------------------------
 
 namespace g2team {
@@ -221,13 +381,14 @@ constexpr int kP3 = 9;   // scan: acc;         check: psi(Q)
 constexpr int kCx = 12;
 constexpr int kCy = 13;
 constexpr int kTmp = 14;
-constexpr int kSlots = kTmp + 21;
+constexpr int kAddTmp = 21;  // the temporaries of add
+constexpr int kSlots = kTmp + kAddTmp;
 constexpr int kLanes = 6;  // the most parts of one bundle
 
 // Component k of slot `slot`.
 FQ_HD Fq& comp_at(Fq2* R, int slot, int k) { return team::comp(R[slot], k); }
 
-// Doubling in place of the point at slots P (jac_double).  Correct for all
+// Doubling in place of the point at slots P (curve.py double).  Correct for all
 // inputs; the identity flag rides through unchanged (the caller keeps it).
 FQ_HD void dbl(const Team& t, Fq2* R, Fq* X, int P) {
   using namespace fq;
@@ -254,15 +415,16 @@ FQ_HD void dbl(const Team& t, Fq2* R, Fq* X, int P) {
   });
 }
 
-// D = P + Q (jac_add_unsafe), P and Q with identity flags pin and qin; D
-// may be P.  Branch-free: the formula always runs and a last stage routes
-// (an identity P gives Q, an identity Q gives P).  p == +-q is NOT
-// handled; each caller states why it cannot occur.  Returns D's flag.
+// D = P + Q (add_unsafe), P and Q with identity flags pin and qin; D may
+// be P; the kAddTmp temporaries from slot tmp on.  Branch-free: the
+// formula always runs and a last stage routes (an identity P gives Q, an
+// identity Q gives P).  p == +-q is NOT handled; each caller states why
+// it cannot occur.  Returns D's flag.
 FQ_HD uint32_t add(const Team& t, Fq2* R, Fq* X, int D, int P, int Q, uint32_t pin,
-                   uint32_t qin) {
+                   uint32_t qin, int tmp = kTmp) {
   using namespace fq;
   const int x1 = P, y1 = P + 1, z1 = P + 2, x2 = Q, y2 = Q + 1, z2 = Q + 2;
-  const int z11 = kTmp, z22 = z11 + 1, u1 = z11 + 2, u2 = z11 + 3, t1 = z11 + 4, t2 = z11 + 5,
+  const int z11 = tmp, z22 = z11 + 1, u1 = z11 + 2, u2 = z11 + 3, t1 = z11 + 4, t2 = z11 + 5,
             h = z11 + 6, h2 = z11 + 7, s1 = z11 + 8, s2 = z11 + 9, i = z11 + 10, rr = z11 + 11,
             r2 = z11 + 12, j = z11 + 13, v = z11 + 14, s1j = z11 + 15, z12 = z11 + 16,
             x3 = z11 + 17, y3 = z11 + 18, z3 = z11 + 19, w = z11 + 20;  // x3, y3, z3 in a row
@@ -299,7 +461,7 @@ FQ_HD uint32_t add(const Team& t, Fq2* R, Fq* X, int D, int P, int Q, uint32_t p
   return pin & qin;
 }
 
-// Projective equality of P and Q (jac_eq): unequal when a z is 0 but its
+// Projective equality of P and Q (jac_eq_dev): unequal when a z is 0 but its
 // flag is unset, so checks fail closed.  Uses the temporaries.
 FQ_HD bool eq(const Team& t, Fq2* R, Fq* X, int P, uint32_t pin, int Q, uint32_t qin) {
   const int z11 = kTmp, z22 = z11 + 1, a = z11 + 2, b = z11 + 3, t1 = z11 + 4, t2 = z11 + 5,
@@ -401,6 +563,67 @@ FQ_HD bool check_row(const Team& t, Fq2* R, Fq* X, uint32_t base_inf) {
   psi(t, R, X, ps, kBase, false);
   t.stage(2, [&](int k) { comp_at(R, chain + 1, k) = fq::neg(comp_at(R, chain + 1, k)); });
   return eq(t, R, X, ps, base_inf, chain, chain_inf);
+}
+
+// ---------------------------------------------------------------------------
+// The sum of G2 points by a pairwise tree (curve.py tree_sum :578), as one
+// block of scan_g2_sums runs it: up to kTreePoints points in the file
+// (point i at slots 3 i .. 3 i + 2, its flag flag[i]) and kTreeTeams
+// teams, each with its own temporaries.  teams.run(m, f) runs f(team, j,
+// X) for the teams j < m side by side (X: team j's exchange buffer), then
+// meets a barrier of the whole block.
+// ---------------------------------------------------------------------------
+
+constexpr int kTreeTeams = 32;
+constexpr int kTreePoints = 2 * kTreeTeams;
+constexpr int kTreeSlots = 3 * kTreePoints + kAddTmp * kTreeTeams;
+
+// Points [0, n) summed into point 0: at level s, point a + s is added into
+// a for every a that is a multiple of 2 s; a point left over by an odd
+// count waits for the next level (tree_sum pads with the identity).
+template <class Teams>
+FQ_HD void tree(const Teams& teams, Fq2* R, uint32_t* flag, int n) {
+  for (int s = 1; s < n; s *= 2) {
+    teams.run((n - s + 2 * s - 1) / (2 * s), [&](const Team& t, int j, Fq* X) {
+      const int a = 2 * s * j;
+      // safety: tree reduction over RLC-scaled points (curve.py module
+      // docstring, second bullet): the points are c_i Q_i with Fiat-Shamir
+      // coefficients fixed after the Q_i were committed, so an engineered
+      // coincidence is negligible in any summation order, this one included.
+      const uint32_t f = add(t, R, X, 3 * a, 3 * a, 3 * (a + s), flag[a], flag[a + s],
+                             3 * kTreePoints + kAddTmp * j);
+      if (t.lane == 0) flag[a] = f;
+    });
+  }
+}
+
+// The sum of `count` points into point 0: the tree over the first
+// kTreePoints, then over the sum so far and the next kTreePoints - 1, and
+// so on.  load(dst, first, m) puts points [first, first + m) of the range
+// at [dst, dst + m) and meets the block's barrier.  No point: the identity.
+template <class Teams, class Load>
+FQ_HD void sum(const Teams& teams, Fq2* R, uint32_t* flag, int count, const Load& load) {
+  if (count == 0) {
+    teams.run(1, [&](const Team& t, int, Fq*) {
+      set_identity(t, R, 0);
+      if (t.lane == 0) flag[0] = 1u;
+    });
+  }
+  for (int done = 0, have = 0; done < count; have = 1) {
+    const int m = count - done < kTreePoints - have ? count - done : kTreePoints - have;
+    load(have, done, m);
+    done += m;
+    tree(teams, R, flag, have + m);
+  }
+}
+
+// The point at slots P in the port's limbs ((2, 36) per coordinate at x,
+// y, z): one conversion (one product) per lane.
+FQ_HD void store(const Team& t, const Fq2* R, int P, int64_t* x, int64_t* y, int64_t* z) {
+  t.stage(6, [&](int l) {
+    const int crd = l >> 1, k = l & 1;
+    fq::to_port(team::comp(R[P + crd], k), (crd == 0 ? x : crd == 1 ? y : z) + k * fq::kLimbs);
+  });
 }
 
 }  // namespace g2team

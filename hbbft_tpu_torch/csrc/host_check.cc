@@ -17,10 +17,17 @@
 //                               neg of the kernel ops, 7 x 72 limbs
 //   G1 x[36] y[36] z[36] inf c[4]
 //                            -> [c]P as x, y, z limbs, inf, then the
-//                               subgroup verdict (0 or 1)
+//                               subgroup verdict (0 or 1), by the
+//                               eight-lane team of scan_g1_rows
 //   G2 x[72] y[72] z[72] inf s[2] q[3]
 //                            -> [c]Q likewise, c = q |x| + s, by the
 //                               two six-lane teams of scan_g2_rows
+//   G2S n n_pieces n_seg (x[72] y[72] z[72] inf) x n pieces[n_pieces + 1]
+//       segments[n_seg + 1]
+//                            -> scan_g2_sums' two passes over the n
+//                               points (pieces of points, then segments
+//                               of pieces): each segment's sum as x, y,
+//                               z limbs and inf
 //   I  a[36]                 -> the Fermat inverse: 36 limbs
 //   I2 a[72] s[36]           -> the Fq2 inverse of a, then a * s: 2 x 72
 //   GAM g[144]               -> (empty) sets the Frobenius constants for
@@ -45,11 +52,14 @@
 //   N                        -> the Fq products since the last N and their
 //                               critical path (2 values)
 //
-// The lane-team code (scan_g2_rows' rows, pair_final's subsets) runs its
-// lanes one after another here (team.cuh).
+// The lane-team code (the rows of scan_g1_rows and scan_g2_rows, the
+// tree of scan_g2_sums, pair_final's subsets) runs its lanes, and the
+// teams and blocks that the card runs side by side, one after another here
+// (team.cuh); the critical path takes the longest of each.
 
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
 #include <iostream>
 #include <sstream>
 #include <stdexcept>
@@ -116,6 +126,36 @@ fq12::Fq12 get_tower(int at) {
   return r;
 }
 
+// scan_g2_sums' block: its file, flags and exchange buffers, and its
+// teams one after another.
+namespace g2tree = curve::g2team;
+fq::Fq2 tree_file[g2tree::kTreeSlots];
+uint32_t tree_flag[g2tree::kTreePoints];
+fq::Fq tree_xch[g2tree::kLanes * g2tree::kTreeTeams];
+
+struct HostTeams {
+  template <class F>
+  void run(int m, F&& f) const {
+    team::Team{0, m, 0}.stage(m, [&](int j) {
+      f(team::Team{0, g2tree::kLanes, 0}, j, tree_xch + g2tree::kLanes * j);
+    });
+  }
+};
+
+constexpr int kG2Words = 6 * fq::kWords;  // a point's words; its flag follows
+
+// One block of scan_g2_sums: records [lo, hi) of recs (kG2Words + 1 words
+// each) summed into point 0 of the block's file.
+void block_sum(const std::vector<uint32_t>& recs, int lo, int hi) {
+  g2tree::sum(HostTeams{}, tree_file, tree_flag, hi - lo, [&](int dst, int from, int m) {
+    for (int r = 0; r < m; ++r) {
+      const uint32_t* src = &recs[static_cast<size_t>(lo + from + r) * (kG2Words + 1)];
+      std::memcpy(&tree_file[3 * (dst + r)], src, kG2Words * sizeof(uint32_t));
+      tree_flag[dst + r] = src[kG2Words];
+    }
+  });
+}
+
 }  // namespace
 
 int main() {
@@ -149,18 +189,23 @@ int main() {
     } else if (tag == "G1") {
       auto x = read_ints(in, fq::kLimbs), y = read_ints(in, fq::kLimbs),
            z = read_ints(in, fq::kLimbs), inf = read_ints(in, 1), c = read_ints(in, 4);
-      const curve::G1 base{fq::from_port(x.data()), fq::from_port(y.data()),
-                           fq::from_port(z.data()), inf[0] != 0 ? 1u : 0u};
       uint32_t words[4];
       for (int i = 0; i < 4; ++i) words[i] = static_cast<uint32_t>(c[i]);
-      bool ok = false;
-      const curve::G1 s = curve::rlc_g1_row(base, words, &ok);
+      fq::Fq file[curve::g1team::kSlots];
+      const team::Team t{0, curve::g1team::kLanes, 0};
+      curve::g1team::load(t, file, x.data(), y.data(), z.data());
+      uint32_t acc_inf = 0;
+      const bool ok = curve::g1team::row(t, file, inf[0] != 0 ? 1u : 0u, words, &acc_inf);
+      // The kernel writes internal records: the limbs here are not counted.
+      const uint64_t products = fq::host_products, path = fq::host_path;
       int64_t limbs[fq::kLimbs];
-      for (const fq::Fq* f : {&s.x, &s.y, &s.z}) {
-        fq::to_port(*f, limbs);
+      for (int k = 0; k < 3; ++k) {
+        fq::to_port(file[curve::g1team::kAcc + k], limbs);
         put(limbs, fq::kLimbs);
       }
-      std::cout << ' ' << s.inf << ' ' << (ok ? 1 : 0);
+      fq::host_products = products;
+      fq::host_path = path;
+      std::cout << ' ' << acc_inf << ' ' << (ok ? 1 : 0);
     } else if (tag == "G2") {
       auto x = read_ints(in, 2 * fq::kLimbs), y = read_ints(in, 2 * fq::kLimbs),
            z = read_ints(in, 2 * fq::kLimbs), inf = read_ints(in, 1), sq = read_ints(in, 5);
@@ -185,6 +230,40 @@ int main() {
       });
       for (int c = 0; c < 3; ++c) put_fq2(scan_file[curve::g2team::kP3 + c]);
       std::cout << ' ' << acc_inf << ' ' << (ok ? 1 : 0);
+    } else if (tag == "G2S") {
+      auto dims = read_ints(in, 3);
+      const int n = static_cast<int>(dims[0]), n_pieces = static_cast<int>(dims[1]),
+                n_seg = static_cast<int>(dims[2]);
+      // The row records, converted outside the counts (scan_g2_rows writes
+      // them on the card).
+      std::vector<uint32_t> rows(static_cast<size_t>(n) * (kG2Words + 1));
+      const uint64_t products = fq::host_products, path = fq::host_path;
+      for (int i = 0; i < n; ++i) {
+        const curve::G2 p = read_g2(in);
+        uint32_t* rec = &rows[static_cast<size_t>(i) * (kG2Words + 1)];
+        std::memcpy(rec, &p, kG2Words * sizeof(uint32_t));
+        rec[kG2Words] = p.inf;
+      }
+      fq::host_products = products;
+      fq::host_path = path;
+      auto pieces = read_ints(in, n_pieces + 1), segments = read_ints(in, n_seg + 1);
+      // Pass 1: a block per piece, side by side; pass 2: a block per segment.
+      std::vector<uint32_t> partial(static_cast<size_t>(n_pieces) * (kG2Words + 1));
+      team::Team{0, n_pieces, 0}.stage(n_pieces, [&](int q) {
+        block_sum(rows, static_cast<int>(pieces[q]), static_cast<int>(pieces[q + 1]));
+        uint32_t* rec = &partial[static_cast<size_t>(q) * (kG2Words + 1)];
+        std::memcpy(rec, tree_file, kG2Words * sizeof(uint32_t));
+        rec[kG2Words] = tree_flag[0];
+      });
+      std::vector<int64_t> limbs(static_cast<size_t>(n_seg) * (6 * fq::kLimbs + 1));
+      team::Team{0, n_seg, 0}.stage(n_seg, [&](int g) {
+        block_sum(partial, static_cast<int>(segments[g]), static_cast<int>(segments[g + 1]));
+        int64_t* out = &limbs[static_cast<size_t>(g) * (6 * fq::kLimbs + 1)];
+        g2tree::store(team::Team{0, g2tree::kLanes, 0}, tree_file, 0, out, out + 2 * fq::kLimbs,
+                      out + 4 * fq::kLimbs);
+        out[6 * fq::kLimbs] = tree_flag[0];
+      });
+      put(limbs.data(), static_cast<int>(limbs.size()));
     } else if (tag == "I") {
       auto a = read_ints(in, fq::kLimbs);
       int64_t out[fq::kLimbs];

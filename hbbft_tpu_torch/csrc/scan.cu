@@ -5,22 +5,25 @@
 // subgroup check and the per-leg sums; the port's plain version is
 // crypto/device/backend.py:scan_stage.  Four kernels:
 //
-//   scan_g1_rows  one thread per G1 row: [c]P by the 128-step LSB-first
-//                 scan, and phi(P) == -[x^2]P from the same doubling chain;
+//   scan_g1_rows  a team of eight lanes per G1 row, four rows a warp: [c]P
+//                 by the 128-step LSB-first scan, and phi(P) == -[x^2]P
+//                 from the same doubling chain;
 //   scan_g2_rows  a team of six lanes per G2 row, in two warps: one warp's
 //                 teams compute [c]Q by the 65-step two-scalar MSB scan (c
 //                 = q |x| + s), the other's psi(Q) == -[|x|]Q;
-//   scan_g1_sums, scan_g2_sums
-//                 one thread per piece: the sum of a contiguous run of
-//                 points.  Blocks cannot carry a sum across, so a segment
-//                 sum is two launches: rows -> pieces of at most a few dozen
-//                 rows (the host cuts them inside segments), then pieces ->
-//                 one sum per segment, written in the port's limb format.
+//   scan_g1_sums  one thread per piece: the sum of a contiguous run of
+//                 points;
+//   scan_g2_sums  one block per piece: the sum of a contiguous run of
+//                 points by a pairwise tree on teams of six lanes.
 //
-// The host orders the rows by (subset, leg) (crypto/device/scan.py), so
-// every leg sum and every subset's generator-leg sum is a contiguous range.
-// A row whose check is masked in (chk != 0) and fails clears its subset's
-// sub_ok word; all writers write the same 0.
+// Blocks cannot carry a sum across, so a segment sum is two launches:
+// rows -> pieces of at most a few dozen rows (the host cuts them inside
+// segments), then pieces -> one sum per segment, written in the port's
+// limb format.  The host orders the rows by (subset, leg)
+// (crypto/device/scan.py), so every leg sum and every subset's
+// generator-leg sum is a contiguous range.  A row whose check is masked in
+// (chk != 0) and fails clears its subset's sub_ok word; all writers write
+// the same 0.
 //
 // What bounds it: 32-bit multiply-adds, 588 per Fq product and at least
 // 456 per Fq square (the kernels square with the product; fq.cuh says
@@ -30,35 +33,43 @@
 // product, 2 per Fq2 square).  chip_smoke.py counts what these inputs
 // need.  Bytes are a few hundred per row.
 //
-// scan_g1_rows and the sum kernels keep a whole row or piece in one
-// thread; their point functions are calls, not inlined copies.  What held
-// the first scan_g2_rows back (12.6 ms a chunk on an H100) was one
-// thread's chain of ~4,420 Fq products per row, each an out-of-line call
-// on spilled state (a 3,912-byte frame), on 16 of the 132 SMs.  Its
-// redesign (curve.cuh, g2team; team.cuh):
+// What held the kernels back was latency, not that work: one thread's
+// chain of dependent Fq products per row or piece (about 2 us each on an
+// H100), on a few of the 132 SMs.  The redesigns (curve.cuh g1team,
+// g2team; team.cuh) shorten the chains:
 //
-//   - The RLC scan and the check chain do not depend on each other, so
-//     they run in different warps (blocks of one warp: rows 5w..5w+4 scan
-//     in block w, check in block W + w).  2,048 rows are 820 warps, about
-//     6 on each of the 132 SMs.
-//   - A row's points live in shared memory (35 Fq2 slots); its team of six
-//     lanes splits every Fq2 product into its Karatsuba parts, one Fq
-//     product per lane, and runs the independent products of a step
-//     together: a doubling is 3 rounds of products, an addition 8.  The
-//     critical path of a row is 731 Fq products instead of ~4,420
-//     (chip_smoke.py's G2_ROW_PATH; the host check counts it).  Teams of
-//     twelve lanes (an addition in 5 rounds, two rows a warp) ran 1.6
-//     times slower: twice the warps issue about twice the instructions,
-//     so the card's issue rate rather than the chain looks to set the
-//     time.
-//   - Everything a lane keeps is a few Fq values: no spills, a frame of
-//     a few hundred bytes for the calls (ptxas -v in PERF.md).  Each
-//     part's product is one out-of-line function: inlined at every
-//     bundle, the loop over a row's 65 steps held a dozen copies of the
-//     CIOS code, more than the instruction cache keeps, and ran 1.7 times
-//     slower.  The formulas run branch-free (an addition with an identity
-//     operand is computed and routed away), so the rows of a warp stay in
-//     step.
+//   - scan_g2_rows (12.6 ms a chunk before): the RLC scan and the check
+//     chain do not depend on each other, so they run in different warps
+//     (blocks of one warp: rows 5w..5w+4 scan in block w, check in block
+//     W + w), and a row's team of six lanes splits every Fq2 product into
+//     its Karatsuba parts and runs the independent products of a step
+//     together: a doubling is 3 rounds, an addition 8.  A row's critical
+//     path is 731 Fq products instead of ~4,420 (chip_smoke.py's
+//     G2_ROW_PATH).  Teams of twelve lanes ran 1.6 times slower: twice
+//     the warps issue about twice the instructions, so the card's issue
+//     rate rather than the chain looks to set the time.
+//   - scan_g1_rows (5.1 ms a chunk before, one thread per row in 16 blocks
+//     of 128: 64 warps, one chain of ~2,160 products a row): step k's RLC
+//     addition, check-chain addition and doubling read cur_k and nothing
+//     of each other, so a team runs their products in the same 5 rounds
+//     (the doubling writes cur_{k+1} to a second slot set).  The RLC
+//     addition runs at every step and is routed away at a clear bit, so a
+//     warp's rows stay in step.  A row's path is chip_smoke.py's
+//     G1_ROW_PATH; 2,048 rows are 512 warps.
+//   - scan_g2_sums (8.2 ms a chunk before, one thread per piece of 32
+//     rows, then one thread over the pieces: 94 serial G2 additions at a
+//     chunk): a block loads up to 64 points into shared memory and halves
+//     them level by level, one team of six lanes per addition and a block
+//     barrier between levels; a piece is 5 levels, a chunk's 64 pieces 6
+//     more (chip_smoke.py's G2_SUMS_PATH).
+//
+// Everything a lane keeps is a few Fq values: no spills (ptxas -v in
+// PERF.md).  Each team's product is one out-of-line function: inlined at
+// every bundle, the loop over a row's steps held a dozen copies of the
+// CIOS code, more than the instruction cache keeps, and ran 1.7 times
+// slower.  The formulas run branch-free (an addition with an identity
+// operand is computed and routed away), so the rows of a warp stay in
+// step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,8 +79,6 @@
 namespace {
 
 using curve::G1;
-using curve::G2;
-using curve::Jac;
 using fq::Fq;
 using fq::Fq2;
 
@@ -92,68 +101,44 @@ __device__ __forceinline__ Fq load_fq(const uint32_t* r) {
   return a;
 }
 
-__device__ __forceinline__ void store(const G1& p, uint32_t* r) {
-  store_fq(p.x, r);
-  store_fq(p.y, r + fq::kWords);
-  store_fq(p.z, r + 2 * fq::kWords);
-  r[3 * fq::kWords] = p.inf;
-}
+// Four rows per warp, one team of eight lanes per row (g1team in
+// curve.cuh), blocks of one warp.  The last warp's spare teams repeat row
+// n - 1 and write nothing.
+constexpr int kG1RowsPerWarp = 32 / curve::g1team::kLanes;
+constexpr int kG1Threads = 32;
+constexpr unsigned kG1Mask =
+    kG1RowsPerWarp * curve::g1team::kLanes == 32
+        ? 0xffffffffu
+        : (1u << (kG1RowsPerWarp * curve::g1team::kLanes)) - 1u;
 
-__device__ __forceinline__ void store(const G2& p, uint32_t* r) {
-  store_fq(p.x.c0, r);
-  store_fq(p.x.c1, r + fq::kWords);
-  store_fq(p.y.c0, r + 2 * fq::kWords);
-  store_fq(p.y.c1, r + 3 * fq::kWords);
-  store_fq(p.z.c0, r + 4 * fq::kWords);
-  store_fq(p.z.c1, r + 5 * fq::kWords);
-  r[6 * fq::kWords] = p.inf;
-}
-
-__device__ __forceinline__ void load(const uint32_t* r, G1* p) {
-  p->x = load_fq(r);
-  p->y = load_fq(r + fq::kWords);
-  p->z = load_fq(r + 2 * fq::kWords);
-  p->inf = r[3 * fq::kWords];
-}
-
-__device__ __forceinline__ void load(const uint32_t* r, G2* p) {
-  p->x = Fq2{load_fq(r), load_fq(r + fq::kWords)};
-  p->y = Fq2{load_fq(r + 2 * fq::kWords), load_fq(r + 3 * fq::kWords)};
-  p->z = Fq2{load_fq(r + 4 * fq::kWords), load_fq(r + 5 * fq::kWords)};
-  p->inf = r[6 * fq::kWords];
-}
-
-template <class F>
-struct Rec;
-template <>
-struct Rec<Fq> {
-  static constexpr int kWords = kG1Rec;
-  static constexpr int kLimbs = fq::kLimbs;  // limbs per coordinate
-};
-template <>
-struct Rec<Fq2> {
-  static constexpr int kWords = kG2Rec;
-  static constexpr int kLimbs = 2 * fq::kLimbs;
-};
-
-__device__ __forceinline__ void write_port(const Fq& a, int64_t* limbs) { fq::to_port(a, limbs); }
-__device__ __forceinline__ void write_port(const Fq2& a, int64_t* limbs) { fq::to_port2(a, limbs); }
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kG1Threads)
 scan_g1_rows(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
              const int64_t* __restrict__ z, const int64_t* __restrict__ inf,
              const uint32_t* __restrict__ coeff, const int32_t* __restrict__ chk,
              const int32_t* __restrict__ row_sub, int n, uint32_t* __restrict__ scaled,
              int32_t* __restrict__ sub_ok) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+  __shared__ Fq file[kG1RowsPerWarp][curve::g1team::kSlots];
+  const int team_id = threadIdx.x / curve::g1team::kLanes;
+  if (team_id >= kG1RowsPerWarp) return;
+  const int first = blockIdx.x * kG1RowsPerWarp;
+  const bool owner = first + team_id < n;
+  const int i = owner ? first + team_id : n - 1;
+  const team::Team t{static_cast<int>(threadIdx.x) % curve::g1team::kLanes,
+                     curve::g1team::kLanes, kG1Mask};
+  Fq* R = file[team_id];
   const int64_t o = static_cast<int64_t>(i) * fq::kLimbs;
-  const G1 base{fq::from_port(x + o), fq::from_port(y + o), fq::from_port(z + o),
-                inf[i] != 0 ? 1u : 0u};
-  bool in_subgroup;
-  const G1 s = curve::rlc_g1_row(base, coeff + 4 * static_cast<int64_t>(i), &in_subgroup);
-  store(s, scaled + static_cast<int64_t>(i) * kG1Rec);
-  if (!in_subgroup && chk[i] != 0) sub_ok[row_sub[i]] = 0;
+  curve::g1team::load(t, R, x + o, y + o, z + o);
+  uint32_t acc_inf;
+  const bool ok = curve::g1team::row(t, R, inf[i] != 0 ? 1u : 0u,
+                                     coeff + 4 * static_cast<int64_t>(i), &acc_inf);
+  if (!owner) return;
+  // The record as a G1 record: lane l < 3 writes coordinate l.
+  uint32_t* rec = scaled + static_cast<int64_t>(i) * kG1Rec;
+  if (t.lane < 3) store_fq(R[curve::g1team::kAcc + t.lane], rec + fq::kWords * t.lane);
+  if (t.lane == 0) {
+    rec[3 * fq::kWords] = acc_inf;
+    if (!ok && chk[i] != 0) sub_ok[row_sub[i]] = 0;
+  }
 }
 
 // Five rows per warp, one team of six lanes per row (g2team in
@@ -195,26 +180,27 @@ scan_g2_rows(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
   const uint32_t acc_inf =
       curve::g2team::scan_row(t, R, X, base_inf, sq + 5 * static_cast<int64_t>(i));
   if (!owner) return;
-  // The record as store() lays it out: lane l writes words [12 l, 12 l + 12).
+  // The record as a G2 record: lane l writes words [12 l, 12 l + 12).
   uint32_t* rec = scaled + static_cast<int64_t>(i) * kG2Rec;
   store_fq(team::comp(R[curve::g2team::kP3 + (t.lane >> 1)], t.lane & 1),
            rec + fq::kWords * t.lane);
   if (t.lane == 0) rec[6 * fq::kWords] = acc_inf;
 }
 
-// Piece p sums records [starts[p], starts[p+1]).  With ox == nullptr the
-// sums go to `out` as records; otherwise to the port's limb format.
-template <class F>
+// Piece p sums G1 records [starts[p], starts[p+1]), one thread each.  With
+// ox == nullptr the sums go to `out` as records; otherwise to the port's
+// limb format.
 __global__ void __launch_bounds__(kThreads)
-scan_sums(const uint32_t* __restrict__ pts, const int32_t* __restrict__ starts, int npieces,
-          uint32_t* __restrict__ out, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
-          int64_t* __restrict__ oz, int64_t* __restrict__ oinf) {
+scan_g1_sums(const uint32_t* __restrict__ pts, const int32_t* __restrict__ starts, int npieces,
+             uint32_t* __restrict__ out, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+             int64_t* __restrict__ oz, int64_t* __restrict__ oinf) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= npieces) return;
-  Jac<F> acc = curve::identity<F>();
+  G1 acc = curve::identity<Fq>();
   for (int r = starts[p]; r < starts[p + 1]; ++r) {
-    Jac<F> pt;
-    load(pts + static_cast<int64_t>(r) * Rec<F>::kWords, &pt);
+    const uint32_t* rec = pts + static_cast<int64_t>(r) * kG1Rec;
+    const G1 pt{load_fq(rec), load_fq(rec + fq::kWords), load_fq(rec + 2 * fq::kWords),
+                rec[3 * fq::kWords]};
     // safety: tree reduction over RLC-scaled points (curve.py module
     // docstring, second bullet): the points are c_i P_i with Fiat-Shamir
     // coefficients fixed after the P_i were committed, so an engineered
@@ -222,14 +208,92 @@ scan_sums(const uint32_t* __restrict__ pts, const int32_t* __restrict__ starts, 
     acc = curve::jac_add_unsafe(acc, pt);
   }
   if (ox == nullptr) {
-    store(acc, out + static_cast<int64_t>(p) * Rec<F>::kWords);
+    uint32_t* rec = out + static_cast<int64_t>(p) * kG1Rec;
+    store_fq(acc.x, rec);
+    store_fq(acc.y, rec + fq::kWords);
+    store_fq(acc.z, rec + 2 * fq::kWords);
+    rec[3 * fq::kWords] = acc.inf;
     return;
   }
-  const int64_t o = static_cast<int64_t>(p) * Rec<F>::kLimbs;
-  write_port(acc.x, ox + o);
-  write_port(acc.y, oy + o);
-  write_port(acc.z, oz + o);
+  const int64_t o = static_cast<int64_t>(p) * fq::kLimbs;
+  fq::to_port(acc.x, ox + o);
+  fq::to_port(acc.y, oy + o);
+  fq::to_port(acc.z, oz + o);
   oinf[p] = acc.inf;
+}
+
+// scan_g2_sums: block p sums G2 records [starts[p], starts[p+1]) by the
+// tree of g2team::sum.  kTreeTeams teams of six lanes, five a warp (lanes
+// 30 and 31 only meet the barriers); the points, the teams' temporaries,
+// exchange buffers and the flags in dynamic shared memory.
+constexpr int kSumTeamsPerWarp = 5;
+constexpr int kSumWarps = (curve::g2team::kTreeTeams + kSumTeamsPerWarp - 1) / kSumTeamsPerWarp;
+constexpr int kSumThreads = 32 * kSumWarps;
+constexpr int kSumXch = curve::g2team::kLanes * curve::g2team::kTreeTeams;
+constexpr int kSumShared = curve::g2team::kTreeSlots * sizeof(Fq2) + kSumXch * sizeof(Fq) +
+                           curve::g2team::kTreePoints * sizeof(uint32_t);
+
+// The block's teams for g2team::tree: team j is lanes [6 (j mod 5), 6 (j
+// mod 5) + 6) of warp j / 5.  A team's barrier is its warp's teams that
+// run at this level.
+struct BlockTeams {
+  int team;  // this thread's team (kTreeTeams and above: none)
+  int lane;
+  Fq* xch;
+
+  template <class F>
+  __device__ void run(int m, F&& f) const {
+    if (team < m) {
+      const int in_warp = min(m - team / kSumTeamsPerWarp * kSumTeamsPerWarp, kSumTeamsPerWarp);
+      const team::Team t{lane, curve::g2team::kLanes,
+                         (1u << (curve::g2team::kLanes * in_warp)) - 1u};
+      f(t, team, xch + curve::g2team::kLanes * team);
+    }
+    __syncthreads();
+  }
+};
+
+__global__ void __launch_bounds__(kSumThreads)
+scan_g2_sums(const uint32_t* __restrict__ pts, const int32_t* __restrict__ starts,
+             uint32_t* __restrict__ out, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+             int64_t* __restrict__ oz, int64_t* __restrict__ oinf) {
+  extern __shared__ uint4 shared[];
+  Fq2* R = reinterpret_cast<Fq2*>(shared);
+  Fq* X = reinterpret_cast<Fq*>(R + curve::g2team::kTreeSlots);
+  uint32_t* flag = reinterpret_cast<uint32_t*>(X + kSumXch);
+  uint32_t* words = reinterpret_cast<uint32_t*>(R);  // point i: words [72 i, 72 i + 72)
+  const int p = blockIdx.x;
+  const int lo = starts[p];
+  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+  const int in_warp = wl / curve::g2team::kLanes;
+  const BlockTeams teams{in_warp < kSumTeamsPerWarp ? warp * kSumTeamsPerWarp + in_warp
+                                                    : curve::g2team::kTreeTeams,
+                         wl % curve::g2team::kLanes, X};
+  constexpr int kPtWords = kG2Rec - 1;
+  curve::g2team::sum(teams, R, flag, starts[p + 1] - lo, [&](int dst, int from, int m) {
+    const uint32_t* src = pts + static_cast<int64_t>(lo + from) * kG2Rec;
+    for (int w = threadIdx.x; w < m * kG2Rec; w += kSumThreads) {
+      const int r = w / kG2Rec, c = w - r * kG2Rec;
+      if (c < kPtWords) {
+        words[(dst + r) * kPtWords + c] = src[w];
+      } else {
+        flag[dst + r] = src[w];
+      }
+    }
+    __syncthreads();
+  });
+  if (ox == nullptr) {
+    uint32_t* rec = out + static_cast<int64_t>(p) * kG2Rec;
+    for (int w = threadIdx.x; w < kG2Rec; w += kSumThreads)
+      rec[w] = w < kPtWords ? words[w] : flag[0];
+    return;
+  }
+  if (threadIdx.x < curve::g2team::kLanes) {
+    const int64_t o = static_cast<int64_t>(p) * 2 * fq::kLimbs;
+    curve::g2team::store(team::Team{static_cast<int>(threadIdx.x), curve::g2team::kLanes, 0x3fu},
+                         R, 0, ox + o, oy + o, oz + o);
+    if (threadIdx.x == 0) oinf[p] = flag[0];
+  }
 }
 
 unsigned blocks(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
@@ -245,7 +309,8 @@ extern "C" int hbbft_scan_g1_rows(const void* x, const void* y, const void* z, c
                                   const void* coeff, const void* chk, const void* row_sub,
                                   int n, void* scaled, void* sub_ok, void* stream) {
   if (n <= 0) return 0;
-  scan_g1_rows<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned warps = static_cast<unsigned>((n + kG1RowsPerWarp - 1) / kG1RowsPerWarp);
+  scan_g1_rows<<<warps, kG1Threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x), static_cast<const int64_t*>(y),
       static_cast<const int64_t*>(z), static_cast<const int64_t*>(inf),
       static_cast<const uint32_t*>(coeff), static_cast<const int32_t*>(chk),
@@ -271,23 +336,27 @@ extern "C" int hbbft_scan_g2_rows(const void* x, const void* y, const void* z, c
 // pts: (rows, rec) records; starts: (npieces + 1,) int32 offsets into pts.
 // Pass 1 (ox null) writes records to out; pass 2 writes limbs to ox, oy, oz
 // ((npieces, 36) G1 or (npieces, 2, 36) G2) and flags to oinf (int64).
-template <class F>
-static int launch_sums(const void* pts, const void* starts, int npieces, void* out, void* ox,
-                       void* oy, void* oz, void* oinf, void* stream) {
+extern "C" int hbbft_scan_g1_sums(const void* pts, const void* starts, int npieces, void* out,
+                                  void* ox, void* oy, void* oz, void* oinf, void* stream) {
   if (npieces <= 0) return 0;
-  scan_sums<F><<<blocks(npieces), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  scan_g1_sums<<<blocks(npieces), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(pts), static_cast<const int32_t*>(starts), npieces,
       static_cast<uint32_t*>(out), static_cast<int64_t*>(ox), static_cast<int64_t*>(oy),
       static_cast<int64_t*>(oz), static_cast<int64_t*>(oinf));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hbbft_scan_g1_sums(const void* pts, const void* starts, int npieces, void* out,
-                                  void* ox, void* oy, void* oz, void* oinf, void* stream) {
-  return launch_sums<Fq>(pts, starts, npieces, out, ox, oy, oz, oinf, stream);
-}
-
 extern "C" int hbbft_scan_g2_sums(const void* pts, const void* starts, int npieces, void* out,
                                   void* ox, void* oy, void* oz, void* oinf, void* stream) {
-  return launch_sums<Fq2>(pts, starts, npieces, out, ox, oy, oz, oinf, stream);
+  if (npieces <= 0) return 0;
+  // Above 48 KB a block's shared memory must be asked for.
+  const cudaError_t err = cudaFuncSetAttribute(
+      scan_g2_sums, cudaFuncAttributeMaxDynamicSharedMemorySize, kSumShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_g2_sums<<<static_cast<unsigned>(npieces), kSumThreads, kSumShared,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pts), static_cast<const int32_t*>(starts),
+      static_cast<uint32_t*>(out), static_cast<int64_t*>(ox), static_cast<int64_t*>(oy),
+      static_cast<int64_t*>(oz), static_cast<int64_t*>(oinf));
+  return static_cast<int>(cudaGetLastError());
 }

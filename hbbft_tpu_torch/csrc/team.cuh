@@ -1,10 +1,10 @@
-// Lane teams: several lanes of one warp share the work of one row (the G2
-// rows of scan_g2_rows) or of one subset (pair_final), so that the
-// independent Fq products of a step run side by side instead of as one
-// thread's chain.
+// Lane teams: several lanes of one warp share the work of one row (the
+// rows of scan_g1_rows and scan_g2_rows), of one addition (scan_g2_sums'
+// tree) or of one subset (pair_final), so that the independent Fq products
+// of a step run side by side instead of as one thread's chain.
 //
-// A team's state lives in shared memory: a file of Fq2 slots and an
-// exchange buffer of Fq parts.  The work is a sequence of stages.  In a
+// A team's state lives in shared memory: a file of slots (Fq2 slots and an
+// exchange buffer of Fq parts; Fq slots for the G1 rows).  The work is a sequence of stages.  In a
 // stage each lane runs the stage's function for its own lane index (and for
 // index + width, index + 2 width, ... when a stage has more tasks than the
 // team has lanes), then the warp meets at a barrier.  No lane reads, within
@@ -18,7 +18,9 @@
 // Fq products a0 b0, a1 b1 and (a0 + a1)(b0 + b1), a square a^2 the two
 // (a0 + a1)(a0 - a1) and a0 (2 a1); each part is one lane's product (the
 // out-of-line part function, operands read from shared memory).  A join
-// stage then builds each component of the result on its own lane.
+// stage then builds each component of the result on its own lane.  Over
+// Fq slots a product is one lane's and needs no join, so a round of
+// products is one stage (fq_round).
 
 #pragma once
 
@@ -144,5 +146,15 @@ FQ_HD void prods(const Team& t, Fq2* R, Fq* X, const Prod& o0, const Prod& o1,
   prods(t, R, X, 3, [&](int i) { return i == 0 ? o0 : i == 1 ? o1 : o2; });
 }
 
+// A round of Fq products of up to three formulas run side by side (Fq
+// slots, no join): n0 + n1 + n2 products in one stage; part(i, k) runs
+// product k of the round's formula i, one out-of-line call.
+template <class P>
+FQ_HD void fq_round(const Team& t, int n0, int n1, int n2, const P& part) {
+  t.stage(n0 + n1 + n2, [&](int task) {
+    const int i = task < n0 ? 0 : task < n0 + n1 ? 1 : 2;
+    part(i, task - (i > 0 ? n0 : 0) - (i > 1 ? n1 : 0));
+  });
+}
 
 }  // namespace team

@@ -115,6 +115,9 @@ def test_scan_kernel_matches_plain_scan_stage(cuda):
     inp, pair_sub = be._scan_prep(subsets)
     plain_args, plain_pair_sub = be._scan_prep(subsets, kernel=False)
     assert pair_sub == plain_pair_sub
+    # The G2 sums see a segment of one row and segments of odd counts.
+    g2_rows = np.diff(inp.g2_pieces.cpu().numpy()[inp.g2_segments.cpu().numpy()]).tolist()
+    assert g2_rows == [31, 11, 1]
     build.reset_launches()
     sub_ok, lhs, rhs = dscan.scan_stage_kernel(inp)
     torch.cuda.synchronize()

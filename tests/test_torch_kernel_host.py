@@ -4,8 +4,10 @@
 A CUDA kernel does not run here, but its headers are ``__host__
 __device__`` code: ``csrc/host_check.cc`` includes them and is compiled
 with the host C++ compiler into a temporary directory, and these tests
-drive it.  The G2 rows run as ``scan_g2_rows`` runs them, on teams of
-lanes (``csrc/team.cuh``), the lanes of a stage one after another.  On
+drive it.  The rows run as ``scan_g1_rows`` and ``scan_g2_rows`` run them,
+and the G2 sums as ``scan_g2_sums``' tree, on teams of lanes
+(``csrc/team.cuh``), the lanes of a stage (and the teams and blocks the
+card runs side by side) one after another.  On
 the card the same headers run, with the Montgomery rows as
 PTX carry chains instead of ``uint64_t``; ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold the kernels against the plain versions there.
@@ -231,6 +233,61 @@ def test_row_scans_match_oracle(host_check, group):
     assert verdicts == [True, True, True, True, False, False, True]
 
 
+def _g2s_request(points, pieces, segments) -> str:
+    """A G2S request: ``points`` as port-limb strings (x, y, z, inf)."""
+    return (f"G2S {len(points)} {len(pieces) - 1} {len(segments) - 1} " + " ".join(points)
+            + " " + _ints(pieces) + " " + _ints(segments))
+
+
+def _g2s_out(row, n_seg):
+    """The segment sums of a G2S answer as (oracle jac, inf)."""
+    width = 6 * NL + 1
+    assert len(row) == n_seg * width
+    sums = []
+    for g in range(n_seg):
+        seg = row[g * width: (g + 1) * width]
+        jac = tuple(fq2.from_mont_int(np.asarray(seg[2 * NL * k: 2 * NL * (k + 1)]).reshape(2, NL))
+                    for k in range(3))
+        sums.append((jac, seg[6 * NL]))
+    return sums
+
+
+@pytest.mark.parametrize("piece_rows", [1, 3, 100])
+def test_g2_tree_sums_match_oracle(host_check, piece_rows):
+    """``scan_g2_sums``' two passes, each block's pairwise tree on six-lane
+    teams, against the oracle's running sum: segments of 1, 2, 3 and 5
+    rows, one of 70 (more than a piece, and more points than a block holds
+    at once in one pass or the other), one of identity records only, and
+    identity records among the others whose coordinates are a real point's
+    (the flag alone makes the identity)."""
+    ops = oc.FQ2_OPS
+    sizes = [1, 2, 3, 5, 70, 4, 9]
+    ident = {(4, 0), (5, 0), (5, 1), (5, 2), (5, 3), (6, 4), (6, 8), (3, 2)}
+    # [2^i] G: no partial sum of distinct powers equals another or its
+    # negative, so add_unsafe's forbidden pairs cannot occur.
+    pt = BLSSuite().g2_generator().jac
+    points, want = [], []
+    for g, size in enumerate(sizes):
+        acc = oc.jac_identity(ops)
+        for r in range(size):
+            x, y, z, _ = dc.g2_to_dev([pt])
+            flag = int((g, r) in ident)
+            points.append(f"{_ints(x)} {_ints(y)} {_ints(z)} {flag}")
+            if not flag:
+                acc = oc.jac_add(ops, acc, pt)
+            pt = oc.jac_double(ops, pt)
+        want.append(acc)
+    seg_of_row = [g for g, size in enumerate(sizes) for _ in range(size)]
+    pieces, segments = dscan.cut_pieces(seg_of_row, len(sizes), piece_rows)
+    (row,) = host_check([_g2s_request(points, pieces, segments)])
+    got = _g2s_out(row, len(sizes))
+    for g, ((jac, inf), w) in enumerate(zip(got, want)):
+        if g == 5:
+            assert inf == 1
+        else:
+            assert inf == 0 and oc.jac_eq(ops, jac, w), g
+
+
 def test_g2_row_product_counts_match_chip_smoke(host_check):
     """``chip_smoke.py``'s products of one G2 row and the critical path it
     gives for ``scan_g2_rows`` (the RLC scan's warp; the check chain runs
@@ -244,6 +301,27 @@ def test_g2_row_product_counts_match_chip_smoke(host_check):
         lines += [_g2_line(jacs[k], coeffs[k]), "N"]
     counts = [tuple(row) for line, row in zip(lines, host_check(lines)) if line == "N"][1:]
     assert counts == [(cs.G2_ROW_PRODUCTS, cs.G2_ROW_PATH)] * 3
+
+
+def test_g1_row_and_g2_sum_counts_match_chip_smoke(host_check):
+    """``chip_smoke.py``'s work and critical path of one G1 row of
+    ``scan_g1_rows`` and of ``scan_g2_sums`` at a firehose chunk's layout
+    (2,048 rows in one segment, pieces of ``PIECE_ROWS``) are what the
+    team code runs, whatever the data: every step and every tree level
+    runs the same stages."""
+    import chip_smoke as cs
+
+    jacs, coeffs, _ = _row_cases("g1")
+    lines = ["N"]
+    for k in (0, 1, 3, 4):  # genuine, scalar 0, the identity, the forged point
+        lines += [_g1_line(jacs[k], coeffs[k]), "N"]
+    n = 2048
+    pieces, segments = dscan.cut_pieces([0] * n, 1, dscan.PIECE_ROWS)
+    x, y, z, inf = dc.g2_to_dev([BLSSuite().g2_generator().jac])
+    lines += [_g2s_request([f"{_ints(x)} {_ints(y)} {_ints(z)} 0"] * n, pieces, segments), "N"]
+    counts = [tuple(row) for line, row in zip(lines, host_check(lines)) if line == "N"][1:]
+    assert counts == [(cs.G1_ROW_PRODUCTS, cs.G1_ROW_PATH)] * 4 + [
+        (cs.G2_SUMS_PRODUCTS, cs.G2_SUMS_PATH)]
 
 
 def _scan_subsets():
@@ -269,9 +347,10 @@ def _scan_subsets():
 
 def test_kernel_scan_layout_matches_oracle_sums(host_check, monkeypatch):
     """The K2 host prep (packed words, rows ordered by leg, pieces) with
-    the kernels' row scans run by the host build and their two sum passes
-    replayed piece by piece: the sums and verdicts the kernels would
-    return, against oracle sums over the plain scan's own inputs."""
+    the kernels' row scans and G2 sums run by the host build and the G1
+    sums' two passes replayed piece by piece: the sums and verdicts the
+    kernels would return, against oracle sums over the plain scan's own
+    inputs."""
     from hbbft_tpu_torch.crypto.device.backend import TorchBackend
 
     monkeypatch.setattr(dscan, "PIECE_ROWS", 1)  # several pieces per segment
@@ -293,7 +372,8 @@ def test_kernel_scan_layout_matches_oracle_sums(host_check, monkeypatch):
     g2 = [_g2_line(dc.g2_from_dev(inp.g2_pts, i), (v >> 64) * xabs + (v & ((1 << 64) - 1)))
           for i, v in enumerate(sq)]
     rows1 = [_g1_out(r) for r in host_check(g1)]
-    rows2 = [_g2_out(r) for r in host_check(g2)]
+    raw2 = host_check(g2)
+    rows2 = [_g2_out(r) for r in raw2]
 
     def replay(rows, pieces, segments, ops):
         def add_all(pts):
@@ -308,7 +388,12 @@ def test_kernel_scan_layout_matches_oracle_sums(host_check, monkeypatch):
         return [add_all(partial[a:b]) for a, b in zip(segments[:-1], segments[1:])]
 
     leg_sums = replay(rows1, inp.g1_pieces.tolist(), inp.g1_segments.tolist(), oc.FQ_OPS)
-    gen_legs = replay(rows2, inp.g2_pieces.tolist(), inp.g2_segments.tolist(), oc.FQ2_OPS)
+    # The G2 sums as scan_g2_sums' trees run them, over the rows' records.
+    (g2s,) = host_check([_g2s_request([_ints(r[: 6 * NL + 1]) for r in raw2],
+                                      inp.g2_pieces, inp.g2_segments)])
+    gen_legs = [jac if not inf else oc.jac_identity(oc.FQ2_OPS)
+                for jac, inf in _g2s_out(g2s, inp.n_sub)]
+    assert len(inp.g2_pieces) > len(inp.g2_segments)  # segments were cut
     sub_ok = [True] * inp.n_sub
     for rows, chk, sub in ((rows1, inp.g1_chk, inp.g1_sub), (rows2, inp.g2_chk, inp.g2_sub)):
         for (_, _, ok), c, s in zip(rows, chk.tolist(), sub.tolist()):
