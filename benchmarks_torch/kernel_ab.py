@@ -7,9 +7,14 @@ root's ``chip_smoke.py`` and ``hbbft_tpu_torch``, builds its kernels into
 that root's build directory, and runs ``chip_smoke.py``'s kernel phases:
 K1 at the data plane's leaf shape, K4 on 2,048 rows, the four K2 kernels
 at one firehose chunk and the two K3 kernels at the firehose's pairs,
-each held against its plain version as ``chip_smoke.py`` holds it.  The
-phases' own lines go to standard output as they come; the last lines are
-one JSON object per run, ``{"root": ..., "ms": {kernel: ms}}``.
+each held against its plain version as ``chip_smoke.py`` holds it.  Two
+more times come from this script's own code, the same for every root:
+``pair_miller`` at the last level of the mixed-512 bisection, and
+``fq_mont_mul``'s own kernel time at 2,048 rows from ``torch.profiler``'s
+kernel records (one wrapper call under CUDA events mostly times its host
+dispatch).  The phases' own lines go to standard output as they come; the
+last lines are one JSON object per run, ``{"root": ..., "ms": {kernel:
+ms}}``.
 
 Run from the repository root on a machine with one CUDA card, parent and
 change in turns so that drift shows:
@@ -45,7 +50,35 @@ kernels = cs.phase_kernels(card, leaf_shape=(104 * 104, 14))
 kernels.append(cs.phase_field(card))
 kernels += cs.phase_scan(card, firehose, mixed)
 kernels += cs.phase_pair(card, firehose, mixed, bad)
-print("KERNEL_MS " + json.dumps({k["name"]: k["ms"] for k in kernels}), flush=True)
+ms = {k["name"]: k["ms"] for k in kernels}
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+from hbbft_tpu_torch.crypto.device import fq, pair as dpair
+from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+
+be = TorchBackend(device="cuda")
+level = cs._bisection_levels(be, mixed)[-1]
+_, llhs, lrhs, _ = be._scan([[mixed[i] for i in h] for h in level])
+ms["pair_miller_last_level"] = cs.cuda_time_ms(lambda: dpair.miller_values_kernel(llhs, lrhs), 5)
+gen = torch.Generator(device="cuda")
+gen.manual_seed(4)
+a = torch.randint(0, 2048, (2048, fq.NL), dtype=torch.int64, device="cuda", generator=gen)
+a[:, -1] = 0
+b = a.flip(0).contiguous()
+fq.mont_mul_kernel(a, b)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(200):
+        fq.mont_mul_kernel(a, b)
+    torch.cuda.synchronize()
+ev = [e for e in prof.key_averages() if "fq_mont_mul_kernel" in e.key and e.self_device_time_total > 0]
+ms["fq_mont_mul_kernel_only"] = (sum(e.self_device_time_total for e in ev)
+                                 / max(sum(e.count for e in ev), 1) / 1e3)
+print(f"pair_miller at the last mixed-512 level ({llhs[3].shape[0]} pairs): "
+      f"{ms['pair_miller_last_level']:.3f} ms; fq_mont_mul kernel alone (profiler, 200 "
+      f"launches at 2048 rows): {ms['fq_mont_mul_kernel_only']:.5f} ms  [{card}]", flush=True)
+print("KERNEL_MS " + json.dumps(ms), flush=True)
 """
 
 

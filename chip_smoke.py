@@ -16,9 +16,9 @@ Phases (any failure raises and the script exits nonzero):
    edge limbs; the scan-stage kernels (K2) on one firehose chunk (2,048
    G1 + 2,048 G2 rows) and on the mixed-512 batch in one subset, whose
    forged non-subgroup point must clear its verdict; the pair-stage
-   kernels (K3) on the firehose's combined pairs and on the mixed-512
-   bisection levels of two- and one-request subsets, verdicts and Miller
-   values equal to the plain pair stage;
+   kernels (K3) on the firehose's combined pairs and on every mixed-512
+   bisection level (down to subsets of two and one request), verdicts
+   and Miller values equal to the plain pair stage;
 2. the reliable-broadcast data plane at N = 104 validators, 64,000-byte
    proposals (one HoneyBadger epoch): every proof checked, sampled proofs
    and parity held against the host Merkle tree and Reed-Solomon code, the
@@ -92,22 +92,24 @@ PSI = 2 * 3  # two Fq2 products
 # Fq products as the kernels run them (tests/test_torch_kernel_host.py and
 # tests/test_torch_pair_host.py count them on the host build of the same
 # code), as (all products, critical path).  The critical path is the
-# products of the longest chain: one thread's products where a thread runs
-# alone; for the lane-team kernels, each stage's busiest lane (and the
-# busiest team and block).  A G1 row of scan_g1_rows (the RLC addition at
-# every step, its limb conversions in); scan_g2_sums' two launches at a
-# firehose chunk (2,048 rows in one segment, pieces of 32: 2,047 G2
-# additions, 11 tree levels of 8 rounds, and the output conversions);
-# a G2 row of scan_g2_rows (both its warps; the path is the RLC scan's warp); a
-# pair_miller thread, with both affine inversions and the limb
-# conversions, or one whose pair has an identity side; pair_final's final
-# exponentiation, reading one Miller value, and one Fq12 product; the
-# Frobenius constants each warp of pair_final converts.  The paths explain
-# the kernels' times; the bounds count the work below instead.
+# products of the longest chain: each stage's busiest lane (and the
+# busiest team and block) of the lane-team kernels.  A G1 row of
+# scan_g1_rows (the RLC addition at every step, its limb conversions in);
+# the G1 and G2 sums' two launches at a firehose chunk (2,048 rows in one
+# segment, pieces of 32: 2,047 additions, 11 tree levels of 5 rounds (G1)
+# or 8 (G2), and the output conversions); a G2 row of scan_g2_rows (both
+# its warps; the path is the RLC scan's warp); a pair_miller warp, with
+# both affine inversions (side by side) and the limb conversions, or one
+# whose pair has an identity side; pair_final's final exponentiation,
+# reading one Miller value, and one Fq12 product; the Frobenius constants
+# each warp of pair_final converts.  The paths explain the kernels' times;
+# the bounds count the work below instead.
 G1_ROW_PRODUCTS, G1_ROW_PATH = 3_221, 660
+G1_SUMS_PRODUCTS, G1_SUMS_PATH = 32_755, 56
 G2_SUMS_PRODUCTS, G2_SUMS_PATH = 90_074, 89
 G2_ROW_PRODUCTS, G2_ROW_PATH = 5_268, 731
-MILLER_PRODUCTS, MILLER_IDENTITY_PRODUCTS = 10_441, 21
+MILLER_PRODUCTS, MILLER_PATH = 8_219, 774
+MILLER_IDENTITY_PRODUCTS, MILLER_IDENTITY_PATH = 12, 1
 FINAL_EXP_PRODUCTS, FINAL_EXP_PATH = 8_208, 913
 FQ12_READ_PRODUCTS, FQ12_READ_PATH = 12, 1
 FQ12_MUL_PRODUCTS, FQ12_MUL_PATH = 54, 2
@@ -186,6 +188,25 @@ def cuda_time_ms(fn, repeats: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiled_kernel_ms(fn, kernel: str, repeats: int) -> float:
+    """Mean device time of one launch of the CUDA function ``kernel``
+    over ``repeats`` calls of ``fn``, from ``torch.profiler``'s kernel
+    records: the kernel's own time, without the host dispatch around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
+    count = sum(e.count for e in events)
+    if not count:
+        raise AssertionError(f"torch.profiler recorded no device time for {kernel}")
+    return sum(e.self_device_time_total for e in events) / count / 1e3
 
 
 def sass_summary(source: str, name: str) -> str:
@@ -307,12 +328,16 @@ def phase_field(card: str) -> dict:
     bad = sum(x != y for x, y in zip(canonical(got), canonical(want)))
     if bad:
         raise AssertionError(f"fq_mont_mul != plain mont_mul on {bad} of 2048 rows")
-    ms = cuda_time_ms(lambda: fq.mont_mul_kernel(a, b), 50)
+    # The kernel's own time (the profiler's kernel records); one wrapper
+    # call under CUDA events mostly times its host dispatch.
+    ms = profiled_kernel_ms(lambda: fq.mont_mul_kernel(a, b), "fq_mont_mul_kernel", 200)
+    call_ms = cuda_time_ms(lambda: fq.mont_mul_kernel(a, b), 50)
     plain_ms = cuda_time_ms(lambda: fq.mont_mul_plain(a, b), 10)
     n = a.shape[0]
     bound_ms, bound_by = bound(n * 3 * fq.NL * 8, n * 2 * FQ_MUL_IMAD)
     log(f"fq_mont_mul 2048 rows (edge limbs 4096, values up to 2^386 - 1, 0, P - 1): "
-        f"== plain canonically; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"== plain canonically; kernel {ms:.5f} ms (profiler, mean of 200 launches; one "
+        f"wrapper call {call_ms:.4f} ms under CUDA events), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by})  [{card}]")
     return {
         "name": fq.KERNEL, "route": "cuda", "source": "hbbft_tpu_torch/csrc/fq.cu",
@@ -450,6 +475,7 @@ def phase_scan(card: str, firehose: list, mixed: list) -> list:
         team_work = {
             dscan.G1_ROWS: (G1_ROW_PRODUCTS * rows1, G1_ROW_PATH),
             dscan.G2_ROWS: (G2_ROW_PRODUCTS * rows2, G2_ROW_PATH),
+            dscan.G1_SUMS: (G1_SUMS_PRODUCTS, G1_SUMS_PATH),
             dscan.G2_SUMS: (G2_SUMS_PRODUCTS, G2_SUMS_PATH),
         }
         out = []
@@ -479,11 +505,11 @@ def phase_scan(card: str, firehose: list, mixed: list) -> list:
 
 def _pair_work(lhs, rhs, pair_sub, n_sub: int) -> dict:
     """Bytes and least multiply-adds of each K3 kernel's function for
-    these pairs, the kernel's serial chain in Fq products (the longest
-    thread's for pair_miller, the critical path of the busiest warp for
-    pair_final) and all the Fq products the kernel runs.  A pair with an identity side needs no work
-    (its value is 1); a subset of c pairs multiplies c - 1 Miller values;
-    each launch shares one Fermat inverse among its values."""
+    these pairs, the kernel's critical path in Fq products (that of the
+    busiest warp) and all the Fq products the kernel runs.  A pair with an
+    identity side needs no work (its value is 1); a subset of c pairs
+    multiplies c - 1 Miller values; each launch shares one Fermat inverse
+    among its values."""
     skip = (lhs[3] | rhs[3]).cpu().tolist()
     counts = np.bincount(pair_sub, minlength=n_sub).tolist()
     n, live, fq12_bytes = len(skip), skip.count(False), 12 * 36 * 8
@@ -496,7 +522,7 @@ def _pair_work(lhs, rhs, pair_sub, n_sub: int) -> dict:
     miller_need = imad(live * (MILLER_NEED + AFFINE_NEED[0]), live * AFFINE_NEED[1], 2 * live)
     final_need = imad(sum(FINAL_EXP_NEED + FQ12_MUL * (c - 1) for c in counts if c),
                       2 * sum(1 for c in counts if c), sum(1 for c in counts if c))
-    miller_chain = MILLER_IDENTITY_PRODUCTS if all(skip) else MILLER_PRODUCTS
+    miller_chain = MILLER_IDENTITY_PATH if all(skip) else MILLER_PATH
     final_chain = FINAL_EXP_PATH + FQ12_READ_PATH * max(counts) + FQ12_MUL_PATH * max(
         max(counts) - 1, 0)
     final_work = sum(GAMMA_PRODUCTS + FINAL_EXP_PRODUCTS + FQ12_READ_PRODUCTS * c
@@ -558,9 +584,9 @@ def _check_pair(lhs, rhs, pair_sub, n_sub: int, what: str, card: str):
 
 def phase_pair(card: str, firehose: list, mixed: list, bad: list) -> list:
     """K3: the pair stage held against the plain one on the firehose's
-    combined pairs (5 chunks, one subset) and on the mixed-512 bisection
-    levels of two- and one-request subsets; each kernel timed at the
-    firehose pairs against its plain counterpart."""
+    combined pairs (5 chunks, one subset) and on every mixed-512
+    bisection level; each kernel timed at the firehose pairs against its
+    plain counterpart, and at the last level."""
     from hbbft_tpu_torch.crypto.device import backend as dbackend
     from hbbft_tpu_torch.crypto.device import pair as dpair
     from hbbft_tpu_torch.crypto.device import pairing as dpairing
@@ -584,10 +610,10 @@ def phase_pair(card: str, firehose: list, mixed: list, bad: list) -> list:
     if got.tolist() != [True]:
         raise AssertionError("pair kernels: the firehose's valid shares were rejected")
 
-    small = [lv for lv in _bisection_levels(be, mixed) if max(len(h) for h in lv) <= 2]
-    if not small:
+    levels = _bisection_levels(be, mixed)
+    if not any(max(len(h) for h in lv) <= 2 for lv in levels):
         raise AssertionError("the mixed-512 bisection never checked subsets of two or one")
-    for level in small:
+    for level in levels:
         sub_ok, llhs, lrhs, lsub = be._scan([[mixed[i] for i in h] for h in level])
         lgot, lerr = _check_pair(llhs, lrhs, lsub, len(level),
                                  f"a mixed-512 bisection level ({len(level)} halves of "
@@ -622,7 +648,7 @@ def phase_pair(card: str, firehose: list, mixed: list, bad: list) -> list:
             log(f"{name} at the firehose's {len(pair_sub)} pairs: kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}; {n_imad} multiply-adds "
                 f"of the pair check, {n_bytes} bytes); the kernel's work {products} Fq products, "
-                f"its serial chain {serial} = {ms * 1e3 / serial:.3f} us per product  [{card}]")
+                f"its critical path {serial} = {ms * 1e3 / serial:.3f} us per product  [{card}]")
             out.append({
                 "name": name, "route": "cuda", "source": "hbbft_tpu_torch/csrc/pair.cu",
                 "replaces": "hbbft_tpu/crypto/tpu/backend.py:137", "launches": None,
@@ -635,11 +661,13 @@ def phase_pair(card: str, firehose: list, mixed: list, bad: list) -> list:
         l_off, l_mem = (torch.as_tensor(a, device="cuda")
                         for a in dpair.subset_members(lsub, len(level)))
         l_fs = dpair.miller_values_kernel(llhs, lrhs)
+        level_miller_ms = cuda_time_ms(lambda: dpair.miller_values_kernel(llhs, lrhs), 5)
         level_final_ms = cuda_time_ms(
             lambda: dpair.final_kernel(l_fs, l_off, l_mem, len(level)), 5)
     log(f"pair stage at the firehose's pairs: K3 {stage_ms:.3f} ms, plain {plain_stage_ms:.1f} ms; "
         f"K3 at the last bisection level ({llhs[3].shape[0]} pairs, {len(level)} subsets) "
-        f"{level_ms:.3f} ms, its pair_final {level_final_ms:.3f} ms  [{card}]")
+        f"{level_ms:.3f} ms, its pair_miller {level_miller_ms:.3f} ms, its pair_final "
+        f"{level_final_ms:.3f} ms  [{card}]")
     log(sass_summary("pair", "pair kernels"))
     return out
 

@@ -5,9 +5,10 @@ Counterpart of the reference's ``hbbft_tpu/crypto/tpu/backend.py``
 the same output: one verdict "the product of the subset's pairings is 1"
 per subset.  Two launches:
 
-* ``pair_miller``, one thread per pair: affine conversion, the Miller
-  loop, and the factor 1 where either side is the identity — the values
-  of the plain :func:`pairing.miller_values`, as (n, 6, 2, 36) limbs;
+* ``pair_miller``, one warp per pair: affine conversion, the Miller
+  loop over the Fq6 tower, and the factor 1 where either side is the
+  identity — the values of the plain :func:`pairing.miller_values`,
+  coefficient by coefficient, as (n, 6, 2, 36) limbs;
 * ``pair_final``, one warp per subset: the product of the subset's
   Miller values in pair order, the final exponentiation over the Fq6
   tower and ``is_one``.

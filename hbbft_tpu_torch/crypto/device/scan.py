@@ -17,9 +17,10 @@ The kernel takes its inputs in its own layout, made on the host by
 * each sum cut into pieces of at most :data:`PIECE_ROWS` rows that never
   cross a segment: the first sum launch adds the rows of each piece, the
   second the pieces of each segment (blocks cannot carry a sum across).
-  ``scan_g1_sums`` runs a thread per piece or segment, ``scan_g2_sums`` a
-  block, whose teams of six lanes add its points by a pairwise tree (64
-  points at a time; a segment of more pieces is summed 63 more at a time).
+  ``scan_g1_sums`` and ``scan_g2_sums`` run a block per piece or segment,
+  whose teams of lanes (four for G1, six for G2) add its points by a
+  pairwise tree (64 points at a time; a segment of more pieces is summed
+  63 more at a time).
 
 :func:`scan_stage_kernel` checks device, dtype, shape and contiguity,
 launches the four kernels and counts each launch in
@@ -47,7 +48,7 @@ G1_SUMS = "scan_g1_sums"
 G2_SUMS = "scan_g2_sums"
 KERNELS = (G1_ROWS, G2_ROWS, G1_SUMS, G2_SUMS)
 
-PIECE_ROWS = 32  # rows of a piece: one G1 thread's, one G2 block's
+PIECE_ROWS = 32  # rows of a piece: one block's in the first sum launch
 G1_REC = 3 * 12 + 1  # 32-bit words of one internal G1 point record
 G2_REC = 6 * 12 + 1
 

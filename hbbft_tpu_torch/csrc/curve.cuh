@@ -4,8 +4,8 @@
 // so a kernel row and the plain scan give the same points.
 //
 // Like fq.cuh, every function is __host__ __device__: the host check in
-// tests/test_torch_kernel_host.py runs these row scans and the G2 tree sum
-// against the oracle, the lanes and teams one after another.
+// tests/test_torch_kernel_host.py runs these row scans and the G1 and G2
+// tree sums against the oracle, the lanes and teams one after another.
 //
 // add_unsafe is WRONG when both inputs are the same non-identity point or
 // exact negatives.  Every call below carries a "// safety:" line naming the
@@ -17,14 +17,6 @@
 
 #include "fq.cuh"
 #include "team.cuh"
-
-// Points go by reference (see the portable mont_mul in fq.cuh for why
-// large structs are not passed by value to out-of-line functions).
-#if defined(__CUDACC__)
-#define CURVE_CALL static __host__ __device__ __noinline__
-#else
-#define CURVE_CALL static inline
-#endif
 
 namespace curve {
 
@@ -40,47 +32,11 @@ struct Jac {
 using G1 = Jac<Fq>;
 using G2 = Jac<Fq2>;
 
-FQ_HD Fq one_of(const Fq*) { return fq::fq_one(); }
-FQ_HD Fq2 one_of(const Fq2*) { return Fq2{fq::fq_one(), fq::fq_zero()}; }
-FQ_HD Fq zero_of(const Fq*) { return fq::fq_zero(); }
-FQ_HD Fq2 zero_of(const Fq2*) { return Fq2{fq::fq_zero(), fq::fq_zero()}; }
-
-// (1, 1, 0) flagged as the identity (curve.py identity()).
-template <class F>
-FQ_HD Jac<F> identity() {
-  const F one = one_of((const F*)nullptr);
-  return Jac<F>{one, one, zero_of((const F*)nullptr), 1u};
-}
-
 // Jacobian doubling on a = 0 curves (curve.py double :74), addition
 // (add_unsafe :107) and projective equality (jac_eq_dev :183) are the
-// formulas of the team code below; jac_add_unsafe is also scan_g1_sums'
-// one-thread addition.
-
-// General Jacobian addition (curve.py add_unsafe :107).  Identity flags are
-// routed: an identity p gives q, an identity q gives p.  p == +-q is NOT
-// handled; each caller states why it cannot occur.
-template <class F>
-CURVE_CALL Jac<F> jac_add_unsafe(const Jac<F>& p, const Jac<F>& q) {
-  using namespace fq;
-  if (p.inf) return q;
-  if (q.inf) return p;
-  const F z1z1 = sqr(p.z);
-  const F z2z2 = sqr(q.z);
-  const F u1 = mul(p.x, z2z2);
-  const F u2 = mul(q.x, z1z1);
-  const F s1 = mul(p.y, mul(q.z, z2z2));
-  const F s2 = mul(q.y, mul(p.z, z1z1));
-  const F h = sub(u2, u1);
-  const F i = sqr(small_mul<2>(h));
-  const F j = mul(h, i);
-  const F rr = small_mul<2>(sub(s2, s1));
-  const F v = mul(u1, i);
-  const F x3 = sub(sub(sqr(rr), j), small_mul<2>(v));
-  const F y3 = sub(mul(rr, sub(v, x3)), small_mul<2>(mul(s1, j)));
-  const F z3 = mul(small_mul<2>(mul(p.z, q.z)), h);
-  return Jac<F>{x3, y3, z3, 0u};
-}
+// formulas of the team code below.  add_unsafe routes identity flags (an
+// identity p gives q, an identity q gives p) and does NOT handle p == +-q;
+// each caller states why it cannot occur.
 
 // GLV endomorphism on G1: X *= beta (curve.py phi_g1 :238).  beta in the
 // kernel's Montgomery form (x * 2^384 mod P).
@@ -349,6 +305,80 @@ FQ_HD bool row(const Team& t, Fq* R, uint32_t base_inf, const uint32_t* coeff,
   const bool both_fin = base_inf == 0 && chain_inf == 0;
   const bool both_inf = base_inf != 0 && chain_inf != 0;
   return both_inf || (both_fin && z_ok && ex && ey);
+}
+
+// ---------------------------------------------------------------------------
+// The sum of G1 points by a pairwise tree (curve.py tree_sum :578), as one
+// block of scan_g1_sums runs it: up to kTreePoints points in a file of Fq
+// slots (point i at slots 3 i .. 3 i + 2, its flag flag[i]) and
+// kTreeTeams teams of kSumLanes lanes, each with its own temporaries.  An
+// addition is add_unsafe's five rounds of at most four products, so four
+// lanes run it; teams.run(m, f) runs f(team, j) for the teams j < m side
+// by side, then meets a barrier of the whole block (g2team::tree is the
+// same tree over G2).
+// ---------------------------------------------------------------------------
+
+constexpr int kSumLanes = 4;
+constexpr int kTreeTeams = 32;
+constexpr int kTreePoints = 2 * kTreeTeams;
+constexpr int kAddTmp = kY3 + 1;  // an addition's temporaries
+constexpr int kTreeSlots = 3 * kTreePoints + kAddTmp * kTreeTeams;
+
+// D = P + Q (add_unsafe) at Fq slots, P and Q with identity flags pin and
+// qin; D may be P; the temporaries from slot tmp on.  Branch-free: the
+// formula always runs and a last stage routes (an identity P gives Q, an
+// identity Q gives P).  p == +-q is NOT handled; each caller states why
+// it cannot occur.  Returns D's flag.
+FQ_HD uint32_t add(const Team& t, Fq* R, int D, int P, int Q, uint32_t pin, uint32_t qin,
+                   int tmp) {
+  const Form f{kAdd, P, Q, tmp};
+  for (int r = 0; r < kRounds; ++r) {
+    const int lo = start(kAdd, r);
+    t.stage(start(kAdd, r + 1) - lo, [&](int k) { part(f, lo + k, R); });
+  }
+  t.stage(3, [&](int l) {
+    R[D + l] = pin ? R[Q + l] : qin ? R[P + l] : add_out(R + tmp, l);
+  });
+  return pin & qin;
+}
+
+// Points [0, n) summed into point 0: at level s, point a + s is added into
+// a for every a that is a multiple of 2 s; a point left over by an odd
+// count waits for the next level (tree_sum pads with the identity).
+template <class Teams>
+FQ_HD void tree(const Teams& teams, Fq* R, uint32_t* flag, int n) {
+  for (int s = 1; s < n; s *= 2) {
+    teams.run((n - s + 2 * s - 1) / (2 * s), [&](const Team& t, int j) {
+      const int a = 2 * s * j;
+      // safety: tree reduction over RLC-scaled points (curve.py module
+      // docstring, second bullet): the points are c_i P_i with Fiat-Shamir
+      // coefficients fixed after the P_i were committed, so an engineered
+      // coincidence is negligible in any summation order, this one included.
+      const uint32_t f = add(t, R, 3 * a, 3 * a, 3 * (a + s), flag[a], flag[a + s],
+                             3 * kTreePoints + kAddTmp * j);
+      if (t.lane == 0) flag[a] = f;
+    });
+  }
+}
+
+// The sum of `count` points into point 0: the tree over the first
+// kTreePoints, then over the sum so far and the next kTreePoints - 1, and
+// so on.  load(dst, first, m) puts points [first, first + m) of the range
+// at [dst, dst + m) and meets the block's barrier.  No point: the identity.
+template <class Teams, class Load>
+FQ_HD void sum(const Teams& teams, Fq* R, uint32_t* flag, int count, const Load& load) {
+  if (count == 0) {
+    teams.run(1, [&](const Team& t, int) {
+      t.stage(3, [&](int l) { R[l] = l < 2 ? fq::fq_one() : fq::fq_zero(); });
+      if (t.lane == 0) flag[0] = 1u;
+    });
+  }
+  for (int done = 0, have = 0; done < count; have = 1) {
+    const int m = count - done < kTreePoints - have ? count - done : kTreePoints - have;
+    load(have, done, m);
+    done += m;
+    tree(teams, R, flag, have + m);
+  }
 }
 
 }  // namespace g1team

@@ -40,8 +40,8 @@
 // The product has two forms.  mont_mul_in is forced inline and takes its
 // operands by reference: the lane teams (team.cuh) call it from one
 // out-of-line part function.  mont_mul is an out-of-line copy for the
-// kernels that still run a whole row in one thread, where inlining every
-// product would multiply the code.
+// chains one thread runs alone (the Fermat inverse, the limb conversions,
+// fq_mont_mul), where inlining every product would multiply the code.
 
 #pragma once
 

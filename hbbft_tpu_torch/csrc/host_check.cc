@@ -28,15 +28,18 @@
 //                               points (pieces of points, then segments
 //                               of pieces): each segment's sum as x, y,
 //                               z limbs and inf
+//   G1S n n_pieces n_seg (x[36] y[36] z[36] inf) x n pieces[n_pieces + 1]
+//       segments[n_seg + 1]
+//                            -> scan_g1_sums' two passes likewise
 //   I  a[36]                 -> the Fermat inverse: 36 limbs
 //   I2 a[72] s[36]           -> the Fq2 inverse of a, then a * s: 2 x 72
 //   GAM g[144]               -> (empty) sets the Frobenius constants for
 //                               k = 1, 2, (2, 6, 2, 36) limbs
-//   F12 a[432] b[432]        -> pair_miller's w-basis sqr(a), sparse_mul(a,
-//                               b0, b2, b3) and conj(a), then pair_final's
-//                               tower ops mul(a, b), conj(a), frobenius(a,
-//                               k) for k = 1, 2 and inv(a): 8 x 432 limbs,
-//                               then is_one(a)
+//   F12 a[432] b[432]        -> pair_miller's a^2 and a (b0 + b2 w^2 + b3
+//                               w^3) on its team, the w-basis conj(a),
+//                               then pair_final's tower ops mul(a, b),
+//                               conj(a), frobenius(a, k) for k = 1, 2 and
+//                               inv(a): 8 x 432 limbs, then is_one(a)
 //   CS f[432]                -> for f in the cyclotomic subgroup: the
 //                               Granger-Scott square, the product f f and
 //                               f^x: 3 x 432 limbs
@@ -44,7 +47,7 @@
 //                               the w basis: 2 x 432 limbs
 //   ML x[36] y[36] z[36] inf x[72] y[72] z[72] inf
 //                            -> pair_miller's value for one (G1, G2)
-//                               pair: 432 limbs
+//                               pair on its team of 32 lanes: 432 limbs
 //   FE f[432]                -> the final exponentiation f^(3 (p^12-1)/r):
 //                               432 limbs, then is_one of it
 //   PF n n_sub f[n * 432] offsets[n_sub + 1] members[n]
@@ -53,7 +56,8 @@
 //                               critical path (2 values)
 //
 // The lane-team code (the rows of scan_g1_rows and scan_g2_rows, the
-// tree of scan_g2_sums, pair_final's subsets) runs its lanes, and the
+// trees of scan_g1_sums and scan_g2_sums, pair_miller's pairs and
+// pair_final's subsets) runs its lanes, and the
 // teams and blocks that the card runs side by side, one after another here
 // (team.cuh); the critical path takes the longest of each.
 
@@ -66,6 +70,7 @@
 #include <string>
 #include <vector>
 
+#include "curve.cuh"
 #include "pairing.cuh"
 
 namespace {
@@ -155,6 +160,59 @@ void block_sum(const std::vector<uint32_t>& recs, int lo, int hi) {
     }
   });
 }
+
+// scan_g1_sums' block likewise, teams of four lanes.
+namespace g1tree = curve::g1team;
+fq::Fq g1_tree_file[g1tree::kTreeSlots];
+uint32_t g1_tree_flag[g1tree::kTreePoints];
+
+struct HostG1Teams {
+  template <class F>
+  void run(int m, F&& f) const {
+    team::Team{0, m, 0}.stage(m, [&](int j) { f(team::Team{0, g1tree::kSumLanes, 0}, j); });
+  }
+};
+
+constexpr int kG1Words = 3 * fq::kWords;
+
+void g1_block_sum(const std::vector<uint32_t>& recs, int lo, int hi) {
+  g1tree::sum(HostG1Teams{}, g1_tree_file, g1_tree_flag, hi - lo, [&](int dst, int from, int m) {
+    for (int r = 0; r < m; ++r) {
+      const uint32_t* src = &recs[static_cast<size_t>(lo + from + r) * (kG1Words + 1)];
+      std::memcpy(&g1_tree_file[3 * (dst + r)], src, kG1Words * sizeof(uint32_t));
+      g1_tree_flag[dst + r] = src[kG1Words];
+    }
+  });
+}
+
+namespace ml = pairing::ml;
+
+// pair_miller's f^2 and f * (l0 + l2 w^2 + l3 w^3) alone, on f at ml::kF
+// and the line at ml::kL0, kL2, kL3: the task functions of its steps,
+// each product bundle and linear stage on its own.
+void ml_sqr(const team::Team& t, fq::Fq2* R, fq::Fq* X) {
+  t.stage(36, [&](int l) { ml::at(R, ml::kSS + (l >> 1), l & 1) = ml::sq_sum(R, l >> 1, l & 1); });
+  team::prods(t, R, X, 12, [&](int i) { return ml::sq_prod(i); });
+  t.stage(12, [&](int l) { ml::sq_fq6(R, l); });
+  t.stage(12, [&](int l) { ml::sq_out(R, l); });
+}
+
+void ml_line(const team::Team& t, fq::Fq2* R, fq::Fq* X) {
+  t.stage(16, [&](int l) {
+    if (l < 10) {
+      ml::line_sum(R, l);
+      return;
+    }
+    ml::line_sums(R, l - 10, ml::at(R, ml::kL0, l & 1));
+  });
+  team::prods(t, R, X, 13, [&](int i) { return ml::line_prod(i); });
+  t.stage(12, [&](int l) { ml::line_out(R, l); });
+}
+
+// pair_miller's file and exchange buffer, and its team of 32 lanes.
+fq::Fq2 ml_file[pairing::ml::kSlots];
+fq::Fq ml_xch[pairing::ml::kParts];
+const team::Team ml_team{0, pairing::ml::kLanes, 0};
 
 }  // namespace
 
@@ -264,6 +322,42 @@ int main() {
         out[6 * fq::kLimbs] = tree_flag[0];
       });
       put(limbs.data(), static_cast<int>(limbs.size()));
+    } else if (tag == "G1S") {
+      auto dims = read_ints(in, 3);
+      const int n = static_cast<int>(dims[0]), n_pieces = static_cast<int>(dims[1]),
+                n_seg = static_cast<int>(dims[2]);
+      // The row records, converted outside the counts (scan_g1_rows writes
+      // them on the card).
+      std::vector<uint32_t> rows(static_cast<size_t>(n) * (kG1Words + 1));
+      const uint64_t products = fq::host_products, path = fq::host_path;
+      for (int i = 0; i < n; ++i) {
+        const curve::G1 p = read_g1(in);
+        uint32_t* rec = &rows[static_cast<size_t>(i) * (kG1Words + 1)];
+        std::memcpy(rec, &p, kG1Words * sizeof(uint32_t));
+        rec[kG1Words] = p.inf;
+      }
+      fq::host_products = products;
+      fq::host_path = path;
+      auto pieces = read_ints(in, n_pieces + 1), segments = read_ints(in, n_seg + 1);
+      // Pass 1: a block per piece, side by side; pass 2: a block per segment.
+      std::vector<uint32_t> partial(static_cast<size_t>(n_pieces) * (kG1Words + 1));
+      team::Team{0, n_pieces, 0}.stage(n_pieces, [&](int q) {
+        g1_block_sum(rows, static_cast<int>(pieces[q]), static_cast<int>(pieces[q + 1]));
+        uint32_t* rec = &partial[static_cast<size_t>(q) * (kG1Words + 1)];
+        std::memcpy(rec, g1_tree_file, kG1Words * sizeof(uint32_t));
+        rec[kG1Words] = g1_tree_flag[0];
+      });
+      std::vector<int64_t> limbs(static_cast<size_t>(n_seg) * (3 * fq::kLimbs + 1));
+      team::Team{0, n_seg, 0}.stage(n_seg, [&](int g) {
+        g1_block_sum(partial, static_cast<int>(segments[g]), static_cast<int>(segments[g + 1]));
+        int64_t* out = &limbs[static_cast<size_t>(g) * (3 * fq::kLimbs + 1)];
+        // Three lanes write x, y, z.
+        team::Team{0, 3, 0}.stage(3, [&](int c) {
+          fq::to_port(g1_tree_file[c], out + c * fq::kLimbs);
+        });
+        out[3 * fq::kLimbs] = g1_tree_flag[0];
+      });
+      put(limbs.data(), static_cast<int>(limbs.size()));
     } else if (tag == "I") {
       auto a = read_ints(in, fq::kLimbs);
       int64_t out[fq::kLimbs];
@@ -280,8 +374,22 @@ int main() {
     } else if (tag == "F12") {
       auto a = read_ints(in, kFq12Limbs), b = read_ints(in, kFq12Limbs);
       const fq12::Fq12 x = fq12::from_port12(a.data()), y = fq12::from_port12(b.data());
-      put_fq12(fq12::sqr(x));
-      put_fq12(fq12::sparse_mul(x, y.c[0], y.c[2], y.c[3]));
+      // pair_miller's square and line product on its team: f at ml::kF,
+      // the line at ml::kL0, kL2, kL3.
+      for (int k = 0; k < 2; ++k) {
+        for (int i = 0; i < 6; ++i) ml_file[ml::kF + tower::slot_of(i)] = x.c[i];
+        ml_file[ml::kL0] = y.c[0];
+        ml_file[ml::kL2] = y.c[2];
+        ml_file[ml::kL3] = y.c[3];
+        if (k == 0) {
+          ml_sqr(ml_team, ml_file, ml_xch);
+        } else {
+          ml_line(ml_team, ml_file, ml_xch);
+        }
+        fq12::Fq12 r;
+        for (int i = 0; i < 6; ++i) r.c[i] = ml_file[ml::kF + tower::slot_of(i)];
+        put_fq12(r);
+      }
       put_fq12(fq12::conj(x));
       put_tower(x, tower::kA);
       put_tower(y, tower::kB);
@@ -313,9 +421,14 @@ int main() {
       for (int s = 0; s < 6; ++s) put_fq2(pf_file[tower::kA + s]);
       put_fq12(get_tower(tower::kA));
     } else if (tag == "ML") {
-      const curve::G1 p = read_g1(in);
-      const curve::G2 q = read_g2(in);
-      put_fq12(pairing::miller_value(p, q));
+      auto x = read_ints(in, fq::kLimbs), y = read_ints(in, fq::kLimbs),
+           z = read_ints(in, fq::kLimbs), inf = read_ints(in, 1);
+      auto qx = read_ints(in, 2 * fq::kLimbs), qy = read_ints(in, 2 * fq::kLimbs),
+           qz = read_ints(in, 2 * fq::kLimbs), qinf = read_ints(in, 1);
+      int64_t out[kFq12Limbs];
+      pairing::ml::value(ml_team, ml_file, ml_xch, x.data(), y.data(), z.data(), inf[0] != 0,
+                         qx.data(), qy.data(), qz.data(), qinf[0] != 0, out);
+      put(out, kFq12Limbs);
     } else if (tag == "FE") {
       auto f = read_ints(in, kFq12Limbs);
       tower::load(pf_team, pf_file, tower::kF, f.data());

@@ -11,10 +11,9 @@
 //   scan_g2_rows  a team of six lanes per G2 row, in two warps: one warp's
 //                 teams compute [c]Q by the 65-step two-scalar MSB scan (c
 //                 = q |x| + s), the other's psi(Q) == -[|x|]Q;
-//   scan_g1_sums  one thread per piece: the sum of a contiguous run of
-//                 points;
-//   scan_g2_sums  one block per piece: the sum of a contiguous run of
-//                 points by a pairwise tree on teams of six lanes.
+//   scan_g1_sums  one block per piece: the sum of a contiguous run of
+//                 points by a pairwise tree on teams of four lanes;
+//   scan_g2_sums  the same over G2, on teams of six lanes.
 //
 // Blocks cannot carry a sum across, so a segment sum is two launches:
 // rows -> pieces of at most a few dozen rows (the host cuts them inside
@@ -33,10 +32,10 @@
 // product, 2 per Fq2 square).  chip_smoke.py counts what these inputs
 // need.  Bytes are a few hundred per row.
 //
-// What held the kernels back was latency, not that work: one thread's
-// chain of dependent Fq products per row or piece (about 2 us each on an
-// H100), on a few of the 132 SMs.  The redesigns (curve.cuh g1team,
-// g2team; team.cuh) shorten the chains:
+// What held the kernels back was latency, not that work: each was first
+// one thread's chain of dependent Fq products per row or piece (about 2 us
+// each on an H100), on a few of the 132 SMs.  The redesigns (curve.cuh
+// g1team, g2team; team.cuh) shorten the chains:
 //
 //   - scan_g2_rows (12.6 ms a chunk before): the RLC scan and the check
 //     chain do not depend on each other, so they run in different warps
@@ -62,6 +61,11 @@
 //     them level by level, one team of six lanes per addition and a block
 //     barrier between levels; a piece is 5 levels, a chunk's 64 pieces 6
 //     more (chip_smoke.py's G2_SUMS_PATH).
+//   - scan_g1_sums (2.4 ms a chunk before, one thread per piece of 32
+//     rows, then one thread per leg over its pieces): the same tree over
+//     G1 records, one team of four lanes per addition (add_unsafe's five
+//     rounds of at most four products), eight teams a warp; a piece is 5
+//     levels, a leg's pieces a few more (chip_smoke.py's G1_SUMS_PATH).
 //
 // Everything a lane keeps is a few Fq values: no spills (ptxas -v in
 // PERF.md).  Each team's product is one out-of-line function: inlined at
@@ -78,11 +82,8 @@
 
 namespace {
 
-using curve::G1;
 using fq::Fq;
 using fq::Fq2;
-
-constexpr int kThreads = 128;
 
 // Internal point records between the row and sum kernels: x, y, z words,
 // then the flag.
@@ -92,13 +93,6 @@ constexpr int kG2Rec = 6 * fq::kWords + 1;
 __device__ __forceinline__ void store_fq(const Fq& a, uint32_t* r) {
 #pragma unroll
   for (int j = 0; j < fq::kWords; ++j) r[j] = a.w[j];
-}
-
-__device__ __forceinline__ Fq load_fq(const uint32_t* r) {
-  Fq a;
-#pragma unroll
-  for (int j = 0; j < fq::kWords; ++j) a.w[j] = r[j];
-  return a;
 }
 
 // Four rows per warp, one team of eight lanes per row (g1team in
@@ -187,39 +181,70 @@ scan_g2_rows(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
   if (t.lane == 0) rec[6 * fq::kWords] = acc_inf;
 }
 
-// Piece p sums G1 records [starts[p], starts[p+1]), one thread each.  With
-// ox == nullptr the sums go to `out` as records; otherwise to the port's
-// limb format.
-__global__ void __launch_bounds__(kThreads)
-scan_g1_sums(const uint32_t* __restrict__ pts, const int32_t* __restrict__ starts, int npieces,
+// scan_g1_sums: block p sums G1 records [starts[p], starts[p+1]) by the
+// tree of g1team::sum: kTreeTeams teams of four lanes, eight a warp; the
+// points, the teams' temporaries and the flags in shared memory.  With ox
+// == nullptr the sums go to `out` as records; otherwise to the port's limb
+// format.
+constexpr int kG1SumTeamsPerWarp = 32 / curve::g1team::kSumLanes;
+constexpr int kG1SumThreads = curve::g1team::kSumLanes * curve::g1team::kTreeTeams;
+
+// The block's teams for g1team::tree: team j is lanes [4 (j mod 8), 4 (j
+// mod 8) + 4) of warp j / 8.  A team's barrier is its warp's teams that
+// run at this level.
+struct G1BlockTeams {
+  int team;
+  int lane;
+
+  template <class F>
+  __device__ void run(int m, F&& f) const {
+    if (team < m) {
+      const int in_warp =
+          min(m - team / kG1SumTeamsPerWarp * kG1SumTeamsPerWarp, kG1SumTeamsPerWarp);
+      const unsigned mask = in_warp == kG1SumTeamsPerWarp
+                                ? 0xffffffffu
+                                : (1u << (curve::g1team::kSumLanes * in_warp)) - 1u;
+      f(team::Team{lane, curve::g1team::kSumLanes, mask}, team);
+    }
+    __syncthreads();
+  }
+};
+
+__global__ void __launch_bounds__(kG1SumThreads)
+scan_g1_sums(const uint32_t* __restrict__ pts, const int32_t* __restrict__ starts,
              uint32_t* __restrict__ out, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
              int64_t* __restrict__ oz, int64_t* __restrict__ oinf) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= npieces) return;
-  G1 acc = curve::identity<Fq>();
-  for (int r = starts[p]; r < starts[p + 1]; ++r) {
-    const uint32_t* rec = pts + static_cast<int64_t>(r) * kG1Rec;
-    const G1 pt{load_fq(rec), load_fq(rec + fq::kWords), load_fq(rec + 2 * fq::kWords),
-                rec[3 * fq::kWords]};
-    // safety: tree reduction over RLC-scaled points (curve.py module
-    // docstring, second bullet): the points are c_i P_i with Fiat-Shamir
-    // coefficients fixed after the P_i were committed, so an engineered
-    // coincidence is negligible in any summation order, this one included.
-    acc = curve::jac_add_unsafe(acc, pt);
-  }
+  __shared__ Fq R[curve::g1team::kTreeSlots];
+  __shared__ uint32_t flag[curve::g1team::kTreePoints];
+  uint32_t* words = reinterpret_cast<uint32_t*>(R);  // point i: words [36 i, 36 i + 36)
+  const int p = blockIdx.x;
+  const int lo = starts[p];
+  const G1BlockTeams teams{static_cast<int>(threadIdx.x) / curve::g1team::kSumLanes,
+                           static_cast<int>(threadIdx.x) % curve::g1team::kSumLanes};
+  constexpr int kPtWords = kG1Rec - 1;
+  curve::g1team::sum(teams, R, flag, starts[p + 1] - lo, [&](int dst, int from, int m) {
+    const uint32_t* src = pts + static_cast<int64_t>(lo + from) * kG1Rec;
+    for (int w = threadIdx.x; w < m * kG1Rec; w += kG1SumThreads) {
+      const int r = w / kG1Rec, c = w - r * kG1Rec;
+      if (c < kPtWords) {
+        words[(dst + r) * kPtWords + c] = src[w];
+      } else {
+        flag[dst + r] = src[w];
+      }
+    }
+    __syncthreads();
+  });
   if (ox == nullptr) {
     uint32_t* rec = out + static_cast<int64_t>(p) * kG1Rec;
-    store_fq(acc.x, rec);
-    store_fq(acc.y, rec + fq::kWords);
-    store_fq(acc.z, rec + 2 * fq::kWords);
-    rec[3 * fq::kWords] = acc.inf;
+    for (int w = threadIdx.x; w < kG1Rec; w += kG1SumThreads)
+      rec[w] = w < kPtWords ? words[w] : flag[0];
     return;
   }
-  const int64_t o = static_cast<int64_t>(p) * fq::kLimbs;
-  fq::to_port(acc.x, ox + o);
-  fq::to_port(acc.y, oy + o);
-  fq::to_port(acc.z, oz + o);
-  oinf[p] = acc.inf;
+  if (threadIdx.x < 3) {
+    const int64_t o = static_cast<int64_t>(p) * fq::kLimbs;
+    fq::to_port(R[threadIdx.x], (threadIdx.x == 0 ? ox : threadIdx.x == 1 ? oy : oz) + o);
+    if (threadIdx.x == 0) oinf[p] = flag[0];
+  }
 }
 
 // scan_g2_sums: block p sums G2 records [starts[p], starts[p+1]) by the
@@ -296,8 +321,6 @@ scan_g2_sums(const uint32_t* __restrict__ pts, const int32_t* __restrict__ start
   }
 }
 
-unsigned blocks(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 // All pointers are device memory, contiguous.  x, y, z: (n, 36) int64 for
@@ -339,8 +362,9 @@ extern "C" int hbbft_scan_g2_rows(const void* x, const void* y, const void* z, c
 extern "C" int hbbft_scan_g1_sums(const void* pts, const void* starts, int npieces, void* out,
                                   void* ox, void* oy, void* oz, void* oinf, void* stream) {
   if (npieces <= 0) return 0;
-  scan_g1_sums<<<blocks(npieces), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(pts), static_cast<const int32_t*>(starts), npieces,
+  scan_g1_sums<<<static_cast<unsigned>(npieces), kG1SumThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pts), static_cast<const int32_t*>(starts),
       static_cast<uint32_t*>(out), static_cast<int64_t*>(ox), static_cast<int64_t*>(oy),
       static_cast<int64_t*>(oz), static_cast<int64_t*>(oinf));
   return static_cast<int>(cudaGetLastError());

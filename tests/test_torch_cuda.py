@@ -129,6 +129,34 @@ def test_scan_kernel_matches_plain_scan_stage(cuda):
     assert _same_points(rhs, want_rhs, 2)
 
 
+@pytest.mark.parametrize("piece_rows", [1, dscan.PIECE_ROWS, 100])
+def test_scan_kernel_long_g1_leg_matches_plain(cuda, monkeypatch, piece_rows):
+    """A G1 leg of 90 rows, longer than one ``scan_g1_sums`` block's 64
+    points: with pieces of one row the second pass sums 90 pieces onto a
+    running sum, with pieces of 100 rows the first pass does."""
+    monkeypatch.setattr(dscan, "PIECE_ROWS", piece_rows)
+    suite = BLSSuite()
+    rng = random.Random(90)
+    sks = keys.SecretKeySet.random(1, rng, suite)
+    pks = sks.public_keys()
+    shares = [sks.secret_key_share(i).sign(b"leg") for i in range(10)]
+    subsets = [[VerifyRequest.sig_share(pks.public_key_share(i % 10), b"leg", shares[i % 10])
+                for i in range(90)], _subsets(suite)[2]]
+    be = TorchBackend(suite, device=cuda)
+    inp, _ = be._scan_prep(subsets)
+    plain_args, _ = be._scan_prep(subsets, kernel=False)
+    pieces, segments = inp.g1_pieces.cpu().numpy(), inp.g1_segments.cpu().numpy()
+    assert max(np.diff(pieces[segments]).tolist()) == 90
+    build.reset_launches()
+    sub_ok, lhs, rhs = dscan.scan_stage_kernel(inp)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[dscan.G1_SUMS] == 2
+    want_ok, want_lhs, want_rhs = dbackend.scan_stage(*plain_args)
+    assert sub_ok.tolist() == want_ok.tolist() == [True, True]
+    assert _same_points(lhs, want_lhs, 1)
+    assert _same_points(rhs, want_rhs, 2)
+
+
 def test_pair_kernels_match_plain_pair_stage(cuda):
     """K3 against the plain pair stage on the card, on the pairs of the
     scan kernels: three subsets (one False, one with the forged point),
@@ -148,6 +176,32 @@ def test_pair_kernels_match_plain_pair_stage(cuda):
         want = dbackend.pair_stage_plain(lhs, rhs, pair_sub, len(subs))
         assert got.tolist() == want.tolist()
         assert got[0] and not got[2]
+
+
+def test_pair_kernels_at_sixteen_pairs_with_identities(cuda):
+    """``pair_miller`` at 16 pairs, a mixed-512 level's most, with two
+    G1-identity and two G2-identity pairs among them: Miller values equal
+    the plain ones coefficient by coefficient (1 on the identity pairs),
+    verdicts equal the plain pair stage's."""
+    suite = BLSSuite()
+    _, lhs, rhs, _ = TorchBackend(suite, device=cuda)._scan(_subsets(suite))
+    n = lhs[3].shape[0]
+    idx = torch.as_tensor([i % n for i in range(12)], device=cuda)
+    g1_id = dc.g1_to_dev([(1, 1, 0)] * 2, cuda)
+    g2_id = dc.g2_to_dev([((1, 0), (1, 0), (0, 0))] * 2, cuda)
+    lhs16 = tuple(torch.cat([c[idx], i, c[:2]]).contiguous() for c, i in zip(lhs, g1_id))
+    rhs16 = tuple(torch.cat([c[idx], c[2:4], i]).contiguous() for c, i in zip(rhs, g2_id))
+    pair_sub = [i % 5 for i in range(16)]
+    build.reset_launches()
+    fs = dpair.miller_values_kernel(lhs16, rhs16)
+    got = dpair.pair_stage_kernel(lhs16, rhs16, pair_sub, 5)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[dpair.MILLER] == 2
+    assert int(fs.min()) >= 0 and int(fs.max()) < 2048
+    assert _canonical(fs) == _canonical(dpairing.miller_values(lhs16, rhs16))
+    for i in range(12, 16):
+        assert [fq.from_mont_int(r) for r in fs[i].reshape(-1, fq.NL).cpu()] == [1] + [0] * 11
+    assert got.tolist() == dbackend.pair_stage_plain(lhs16, rhs16, pair_sub, 5).tolist()
 
 
 def test_torch_backend_on_card_matches_batched(cuda):

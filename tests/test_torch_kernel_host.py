@@ -5,7 +5,7 @@ A CUDA kernel does not run here, but its headers are ``__host__
 __device__`` code: ``csrc/host_check.cc`` includes them and is compiled
 with the host C++ compiler into a temporary directory, and these tests
 drive it.  The rows run as ``scan_g1_rows`` and ``scan_g2_rows`` run them,
-and the G2 sums as ``scan_g2_sums``' tree, on teams of lanes
+and the sums as ``scan_g1_sums``' and ``scan_g2_sums``' trees, on teams of lanes
 (``csrc/team.cuh``), the lanes of a stage (and the teams and blocks the
 card runs side by side) one after another.  On
 the card the same headers run, with the Montgomery rows as
@@ -32,6 +32,7 @@ from hbbft_tpu.crypto.bls.suite import BLSSuite
 from hbbft_tpu_torch.crypto.device import curve as dc
 from hbbft_tpu_torch.crypto.device import fq, fq2
 from hbbft_tpu_torch.crypto.device import scan as dscan
+from torch_low_priority import low_priority
 
 P = OF.P
 NL = fq.NL
@@ -288,6 +289,83 @@ def test_g2_tree_sums_match_oracle(host_check, piece_rows):
             assert inf == 0 and oc.jac_eq(ops, jac, w), g
 
 
+def _g1s_request(points, pieces, segments) -> str:
+    """A G1S request: ``points`` as port-limb strings (x, y, z, inf)."""
+    return (f"G1S {len(points)} {len(pieces) - 1} {len(segments) - 1} " + " ".join(points)
+            + " " + _ints(pieces) + " " + _ints(segments))
+
+
+def _g1s_out(row, n_seg):
+    """The segment sums of a G1S answer as (oracle jac, inf), strict limbs."""
+    width = 3 * NL + 1
+    assert len(row) == n_seg * width
+    sums = []
+    for g in range(n_seg):
+        seg = row[g * width: (g + 1) * width]
+        jac = tuple(_strict_value(seg[NL * k: NL * (k + 1)]) * R_INV % P for k in range(3))
+        sums.append((jac, seg[3 * NL]))
+    return sums
+
+
+G1_SUM_SIZES = [1, 2, 3, 5, 70, 4, 9]
+G1_SUM_IDENT = {(4, 0), (5, 0), (5, 1), (5, 2), (5, 3), (6, 4), (6, 8), (3, 2), (4, 69)}
+
+
+@pytest.fixture(scope="module")
+def g1_sum_case():
+    """The G1 tree sums' points and the oracle's and the plain
+    ``_masked_sums``' segment sums, computed once for the module.  The
+    points are [2^i] G: no partial sum of distinct powers equals another or
+    its negative, so add_unsafe's forbidden pairs cannot occur; identity
+    records keep a real point's coordinates (the flag alone makes the
+    identity)."""
+    from hbbft_tpu_torch.crypto.device import backend as dbackend
+
+    ops = oc.FQ_OPS
+    pt = BLSSuite().g1_generator().jac
+    jacs, flags, want = [], [], []
+    for g, size in enumerate(G1_SUM_SIZES):
+        acc = oc.jac_identity(ops)
+        for r in range(size):
+            jacs.append(pt)
+            flag = int((g, r) in G1_SUM_IDENT)
+            flags.append(flag)
+            if not flag:
+                acc = oc.jac_add(ops, acc, pt)
+            pt = oc.jac_double(ops, pt)
+        want.append(acc)
+    x, y, z, _ = dc.g1_to_dev(jacs)
+    inf = torch.as_tensor(flags, dtype=torch.int64)
+    points = [f"{_ints(x[i])} {_ints(y[i])} {_ints(z[i])} {flags[i]}" for i in range(len(jacs))]
+    seg_of_row = [g for g, size in enumerate(G1_SUM_SIZES) for _ in range(size)]
+    mask = torch.zeros((len(G1_SUM_SIZES), len(jacs)), dtype=torch.bool)
+    mask[seg_of_row, torch.arange(len(jacs))] = True
+    with torch.inference_mode():
+        plain = low_priority(dbackend._masked_sums)(dc.G1_OPS, (x, y, z, inf), mask)
+    return points, seg_of_row, want, plain
+
+
+@pytest.mark.parametrize("piece_rows", [1, 3, 100])
+def test_g1_tree_sums_match_oracle_and_plain(host_check, g1_sum_case, piece_rows):
+    """``scan_g1_sums``' two passes, each block's pairwise tree on teams of
+    four lanes, against the oracle's running sum and the plain
+    ``_masked_sums``: segments of 1, 2, 3 and 5 rows, one of 70 (more than
+    a piece, and more points than a block holds at once in one pass or the
+    other), one of identity records only, and identity records among the
+    others."""
+    ops = oc.FQ_OPS
+    points, seg_of_row, want, plain = g1_sum_case
+    pieces, segments = dscan.cut_pieces(seg_of_row, len(G1_SUM_SIZES), piece_rows)
+    (row,) = host_check([_g1s_request(points, pieces, segments)])
+    for g, ((jac, inf), w) in enumerate(zip(_g1s_out(row, len(G1_SUM_SIZES)), want)):
+        assert inf == int(plain[3][g]), g
+        if g == 5:
+            assert inf == 1
+        else:
+            assert inf == 0 and oc.jac_eq(ops, jac, w), g
+            assert oc.jac_eq(ops, jac, dc.g1_from_dev(plain, g)), g
+
+
 def test_g2_row_product_counts_match_chip_smoke(host_check):
     """``chip_smoke.py``'s products of one G2 row and the critical path it
     gives for ``scan_g2_rows`` (the RLC scan's warp; the check chain runs
@@ -305,10 +383,10 @@ def test_g2_row_product_counts_match_chip_smoke(host_check):
 
 def test_g1_row_and_g2_sum_counts_match_chip_smoke(host_check):
     """``chip_smoke.py``'s work and critical path of one G1 row of
-    ``scan_g1_rows`` and of ``scan_g2_sums`` at a firehose chunk's layout
-    (2,048 rows in one segment, pieces of ``PIECE_ROWS``) are what the
-    team code runs, whatever the data: every step and every tree level
-    runs the same stages."""
+    ``scan_g1_rows`` and of ``scan_g1_sums`` and ``scan_g2_sums`` at a
+    firehose chunk's layout (2,048 rows in one segment, pieces of
+    ``PIECE_ROWS``) are what the team code runs, whatever the data: every
+    step and every tree level runs the same stages."""
     import chip_smoke as cs
 
     jacs, coeffs, _ = _row_cases("g1")
@@ -319,9 +397,11 @@ def test_g1_row_and_g2_sum_counts_match_chip_smoke(host_check):
     pieces, segments = dscan.cut_pieces([0] * n, 1, dscan.PIECE_ROWS)
     x, y, z, inf = dc.g2_to_dev([BLSSuite().g2_generator().jac])
     lines += [_g2s_request([f"{_ints(x)} {_ints(y)} {_ints(z)} 0"] * n, pieces, segments), "N"]
+    x, y, z, inf = dc.g1_to_dev([BLSSuite().g1_generator().jac])
+    lines += [_g1s_request([f"{_ints(x)} {_ints(y)} {_ints(z)} 0"] * n, pieces, segments), "N"]
     counts = [tuple(row) for line, row in zip(lines, host_check(lines)) if line == "N"][1:]
     assert counts == [(cs.G1_ROW_PRODUCTS, cs.G1_ROW_PATH)] * 4 + [
-        (cs.G2_SUMS_PRODUCTS, cs.G2_SUMS_PATH)]
+        (cs.G2_SUMS_PRODUCTS, cs.G2_SUMS_PATH), (cs.G1_SUMS_PRODUCTS, cs.G1_SUMS_PATH)]
 
 
 def _scan_subsets():
@@ -347,10 +427,9 @@ def _scan_subsets():
 
 def test_kernel_scan_layout_matches_oracle_sums(host_check, monkeypatch):
     """The K2 host prep (packed words, rows ordered by leg, pieces) with
-    the kernels' row scans and G2 sums run by the host build and the G1
-    sums' two passes replayed piece by piece: the sums and verdicts the
-    kernels would return, against oracle sums over the plain scan's own
-    inputs."""
+    the kernels' row scans and both groups' sums run by the host build:
+    the sums and verdicts the kernels would return, against oracle sums
+    over the plain scan's own inputs."""
     from hbbft_tpu_torch.crypto.device.backend import TorchBackend
 
     monkeypatch.setattr(dscan, "PIECE_ROWS", 1)  # several pieces per segment
@@ -371,23 +450,16 @@ def test_kernel_scan_layout_matches_oracle_sums(host_check, monkeypatch):
           for i, w in enumerate(inp.g1_words)]
     g2 = [_g2_line(dc.g2_from_dev(inp.g2_pts, i), (v >> 64) * xabs + (v & ((1 << 64) - 1)))
           for i, v in enumerate(sq)]
-    rows1 = [_g1_out(r) for r in host_check(g1)]
+    raw1 = host_check(g1)
+    rows1 = [_g1_out(r) for r in raw1]
     raw2 = host_check(g2)
     rows2 = [_g2_out(r) for r in raw2]
 
-    def replay(rows, pieces, segments, ops):
-        def add_all(pts):
-            acc = oc.jac_identity(ops)
-            for p in pts:
-                acc = oc.jac_add(ops, acc, p)
-            return acc
-
-        ident = oc.jac_identity(ops)
-        pts = [ident if inf else pt for pt, inf, _ in rows]
-        partial = [add_all(pts[a:b]) for a, b in zip(pieces[:-1], pieces[1:])]
-        return [add_all(partial[a:b]) for a, b in zip(segments[:-1], segments[1:])]
-
-    leg_sums = replay(rows1, inp.g1_pieces.tolist(), inp.g1_segments.tolist(), oc.FQ_OPS)
+    # The G1 sums as scan_g1_sums' trees run them, over the rows' records.
+    (g1s,) = host_check([_g1s_request([_ints(r[: 3 * NL + 1]) for r in raw1],
+                                      inp.g1_pieces, inp.g1_segments)])
+    leg_sums = [jac if not inf else oc.jac_identity(oc.FQ_OPS)
+                for jac, inf in _g1s_out(g1s, inp.g1_segments.shape[0] - 1)]
     # The G2 sums as scan_g2_sums' trees run them, over the rows' records.
     (g2s,) = host_check([_g2s_request([_ints(r[: 6 * NL + 1]) for r in raw2],
                                       inp.g2_pieces, inp.g2_segments)])

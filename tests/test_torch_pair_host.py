@@ -4,7 +4,7 @@ CPU, and the host layout of ``crypto/device/pair.py``.
 
 ``csrc/host_check.cc`` includes the kernels' headers and is built with the
 host C++ compiler (as in ``tests/test_torch_kernel_host.py``); its ``ML``
-and ``PF`` requests run the very functions each ``pair_miller`` thread and
+and ``PF`` requests run the very functions each ``pair_miller`` warp and
 each ``pair_final`` warp runs, the warp's lanes one after another between
 its barriers.  They are held against Python integers, the
 BLS oracle (``crypto/bls/pairing.py``), the port's plain pairing
@@ -99,8 +99,8 @@ def test_inverses_match_python_ints(host_check):
 
 
 def test_fq12_ops_match_oracle_and_plain(host_check):
-    """pair_miller's w-basis ops and pair_final's tower ops (run by the
-    host build lane after lane) against the oracle."""
+    """pair_miller's square and line product and pair_final's tower ops
+    (run by the host build lane after lane) against the oracle."""
     rng = random.Random(12)
     cases = [(_rand_fq12(rng), _rand_fq12(rng)) for _ in range(3)]
     cases.append((OF.FQ12_ONE, _rand_fq12(rng)))
@@ -213,23 +213,87 @@ def stage(host_check):
     return g1s, g2s, pair_sub, want, lhs, rhs, kernel_fs, plain_fs
 
 
+def _projective_miller(p_aff, q_aff):
+    """The Miller loop of ``crypto/device/pairing.py`` (Jacobian T, lines
+    scaled by T's coordinates) in the oracle's field arithmetic
+    (``hbbft_tpu.crypto.bls.fields``): the value pair_miller must give
+    coefficient by coefficient.  The oracle's own ``miller_loop`` scales
+    its affine lines otherwise, which only the final exponentiation hides."""
+    px, py = p_aff
+    qx, qy = q_aff
+    zero, one = (0, 0), (1, 0)
+    mul, sqr, add, sub = OF.fq2_mul, OF.fq2_sqr, OF.fq2_add, OF.fq2_sub
+
+    def k(a, n):
+        return OF.fq2_muls(a, n)
+
+    def line(l0, l2, l3):
+        return (l0, zero, l2, l3, zero, zero)
+
+    x, y, z, f = qx, qy, one, OF.FQ12_ONE
+    for bit in bin(-OF.BLS_X)[3:]:
+        a, b, z1z1 = sqr(x), sqr(y), sqr(z)
+        l0 = sub(k(mul(x, a), 3), k(b, 2))
+        l2 = OF.fq2_neg(OF.fq2_muls(k(mul(a, z1z1), 3), px))
+        znew = k(mul(y, z), 2)
+        l3 = OF.fq2_muls(mul(znew, z1z1), py)
+        c = sqr(b)
+        d = k(sub(sub(sqr(add(x, b)), a), c), 2)
+        e = k(a, 3)
+        x3 = sub(sqr(e), k(d, 2))
+        x, y, z = x3, sub(mul(e, sub(d, x3)), k(c, 8)), znew
+        f = OF.fq12_mul(OF.fq12_sqr(f), line(l0, l2, l3))
+        if bit == "1":
+            z1z1 = sqr(z)
+            u2, s2 = mul(qx, z1z1), mul(qy, mul(z, z1z1))
+            h, theta = sub(u2, x), sub(s2, y)
+            hz = mul(h, z)
+            l0 = sub(mul(theta, qx), mul(qy, hz))
+            l2 = OF.fq2_muls(theta, (-px) % P)
+            l3 = OF.fq2_muls(hz, py)
+            i = k(sqr(h), 4)
+            j, rr, v = mul(h, i), k(theta, 2), mul(x, i)
+            x3 = sub(sub(sqr(rr), j), k(v, 2))
+            x, y, z = x3, sub(mul(rr, sub(v, x3)), k(mul(y, j), 2)), k(hz, 2)
+            f = OF.fq12_mul(f, line(l0, l2, l3))
+    return OF.fq12_conjugate(f)
+
+
 @low_priority
-def test_miller_values_match_plain_and_oracle(stage):
-    """pair_miller's per-thread value equals the plain miller_values
-    coefficient by coefficient (the same line scaling), 1 on identity
-    pairs, and the oracle's pairing after the oracle's final exponentiation."""
+def test_miller_values_match_plain_and_oracle(host_check, stage):
+    """pair_miller's value, its warp's lanes run one after another, equals
+    the plain miller_values and the oracle-field Miller loop coefficient by
+    coefficient (the same line scaling), 1 on identity pairs (P or Q the
+    identity), and the oracle's pairing after the oracle's final
+    exponentiation: valid pairs, identity pairs and pairs with a forged
+    non-subgroup point on either side."""
     g1s, g2s, _, _, _, _, kernel_fs, plain_fs = stage
-    for i in range(len(g1s)):
-        assert _fq12_value(kernel_fs[i]) == _plain_value(plain_fs[i]), i
-    skips = [i for i in range(len(g1s)) if g1s[i][2] == 0 or g2s[i][2] == (0, 0)]
+    from hbbft_tpu.crypto.bls.curve import _twist_sample_point
+    from test_torch_kernel_host import _rogue_g1
+
+    forged = [(_rogue_g1(), g2s[0]), (g1s[0], _twist_sample_point())]
+    forged_fs = [np.asarray(r).reshape(6, 2, NL)
+                 for r in host_check([_ml_line(a, b) for a, b in forged])]
+    with torch.inference_mode():
+        forged_plain = low_priority(tp.miller_values)(dc.g1_to_dev([a for a, _ in forged]),
+                                                      dc.g2_to_dev([b for _, b in forged]))
+    pairs = list(zip(g1s, g2s)) + forged
+    fs = list(kernel_fs) + forged_fs
+    plain = list(plain_fs) + list(forged_plain)
+    skips = [i for i, (a, b) in enumerate(pairs) if a[2] == 0 or b[2] == (0, 0)]
     assert len(skips) == 3
-    for i in skips:
-        assert _fq12_value(kernel_fs[i]) == OF.FQ12_ONE
-    i = next(i for i in range(len(g1s)) if i not in skips)
-    p_aff = oc.jac_to_affine(oc.FQ_OPS, g1s[i])
-    q_aff = oc.jac_to_affine(oc.FQ2_OPS, g2s[i])
-    assert OF.fq12_eq(opair.final_exponentiation(_fq12_value(kernel_fs[i])),
-                      opair.pairing(p_aff, q_aff))
+    assert any(g1s[i][2] == 0 for i in skips) and any(g2s[i][2] == (0, 0) for i in skips)
+    for i, (a, b) in enumerate(pairs):
+        got = _fq12_value(fs[i])
+        assert got == _plain_value(plain[i]), i
+        if i in skips:
+            assert got == OF.FQ12_ONE
+            continue
+        p_aff = oc.jac_to_affine(oc.FQ_OPS, a)
+        q_aff = oc.jac_to_affine(oc.FQ2_OPS, b)
+        assert got == _projective_miller(p_aff, q_aff), i
+        if i in (0, len(pairs) - 2, len(pairs) - 1):  # valid, forged G1, forged G2
+            assert OF.fq12_eq(opair.final_exponentiation(got), opair.pairing(p_aff, q_aff))
 
 
 def test_final_exp_is_the_cube_of_the_oracles(host_check, stage):
@@ -308,12 +372,12 @@ def test_plain_stage_matches_jax_pairing_product():
 
 
 def test_product_counts_match_chip_smoke_chains(host_check, stage):
-    """The Fq products ``chip_smoke.py`` gives as each K3 kernel's serial
-    chain (pair_miller: one thread's products; pair_final: the critical
-    path of its warp, each lane's products counted on the longest chain of
-    stages) and as pair_final's whole work are the products the kernels'
-    code runs (host build, counted in ``fq.cuh``'s portable product); its
-    bounds count less, on the same schedule of |x|."""
+    """The Fq products ``chip_smoke.py`` gives as each K3 kernel's critical
+    path (that of its warp, each lane's products counted on the longest
+    chain of stages) and as its whole work are the products the kernels'
+    code runs (host build, counted in ``fq.cuh``'s portable product), for a
+    live pair and an identity pair of pair_miller; its bounds count less,
+    on the same schedule of |x|."""
     import chip_smoke as cs
 
     g1s, g2s, _, _, _, _, kernel_fs, _ = stage
@@ -322,8 +386,8 @@ def test_product_counts_match_chip_smoke_chains(host_check, stage):
              f"PF 3 1 {_ints(kernel_fs[:3])} 0 3 0 1 2", "N"]
     counts = [tuple(row) for line, row in zip(lines, host_check(lines)) if line == "N"][1:]
     miller, identity, gammas, fe, pf3 = counts
-    assert miller == (cs.MILLER_PRODUCTS, cs.MILLER_PRODUCTS)  # one thread
-    assert identity == (cs.MILLER_IDENTITY_PRODUCTS,) * 2
+    assert miller == (cs.MILLER_PRODUCTS, cs.MILLER_PATH)
+    assert identity == (cs.MILLER_IDENTITY_PRODUCTS, cs.MILLER_IDENTITY_PATH)
     assert gammas == (cs.GAMMA_PRODUCTS, 1)  # one conversion per lane
     # FE reads f on 12 lanes and writes the result on one thread.
     read, write = 12, 12
