@@ -5,14 +5,18 @@ commit unpacked with ``git archive`` into a directory ``.gitignore``
 lists.  For each root, in the order given, a fresh process imports that
 root's ``chip_smoke.py`` and ``hbbft_tpu_torch``, builds its kernels into
 that root's build directory, and runs ``chip_smoke.py``'s kernel phases:
-K1 at the data plane's leaf shape, K4 on 2,048 rows, the four K2 kernels
-at one firehose chunk and the two K3 kernels at the firehose's pairs,
-each held against its plain version as ``chip_smoke.py`` holds it.  Two
-more times come from this script's own code, the same for every root:
-``pair_miller`` at the last level of the mixed-512 bisection, and
-``fq_mont_mul``'s own kernel time at 2,048 rows from ``torch.profiler``'s
-kernel records (one wrapper call under CUDA events mostly times its host
-dispatch).  The phases' own lines go to standard output as they come; the
+K1 at the data plane's leaf shape (and the Merkle tree kernel at N = 104,
+where the root has it), K4 on 2,048 rows, the four K2 kernels at one
+firehose chunk and the two K3 kernels at the firehose's pairs, each held
+against its plain version as ``chip_smoke.py`` holds it.  More times
+come from this script's own code, the same for every root:
+``pair_miller`` at the last level of the mixed-512 bisection; the own
+kernel times, from ``torch.profiler``'s kernel records, of
+``fq_mont_mul`` at 2,048 rows and of ``keccak_sha3_256`` at 65,536 x 1
+and 10,816 x 14 blocks (one wrapper call under CUDA events also times
+its host dispatch, which is most of a short kernel's time); and the data
+plane's leaf and level hashing (K6, ``tree_levels``) at N = 104,
+64,000-byte proposals, whatever kernels the root runs it on.  The phases' own lines go to standard output as they come; the
 last lines are one JSON object per run, ``{"root": ..., "ms": {kernel:
 ms}}``.
 
@@ -75,6 +79,24 @@ with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
 ev = [e for e in prof.key_averages() if "fq_mont_mul_kernel" in e.key and e.self_device_time_total > 0]
 ms["fq_mont_mul_kernel_only"] = (sum(e.self_device_time_total for e in ev)
                                  / max(sum(e.count for e in ev), 1) / 1e3)
+import numpy as np
+from hbbft_tpu_torch.ops.device import dataplane as dp
+from hbbft_tpu_torch.ops.device import keccak as K
+gen.manual_seed(5)
+for batch, nb in ((65_536, 1), (104 * 104, 14)):
+    padded = K.pad_tensor(torch.randint(0, 256, (batch, nb * K.RATE - 1), dtype=torch.uint8,
+                                        device="cuda", generator=gen))
+    key = f"keccak_sha3_256_{batch}x{nb}_kernel_only"
+    ms[key] = cs.profiled_kernel_ms(lambda: K.sha3_256_kernel(padded), "sha3_256_kernel", 50)
+    print(f"keccak_sha3_256 kernel alone (profiler, 50 launches) at {batch} x {nb}: "
+          f"{ms[key]:.5f} ms  [{card}]", flush=True)
+rng = np.random.default_rng(104)
+values = [rng.integers(0, 256, 64_000, dtype=np.uint8).tobytes() for _ in range(104)]
+data = torch.as_tensor(np.stack([dp._pack(v, 36)[0] for v in values]), device="cuda")
+with torch.inference_mode():
+    shards = dp.rs_shards(data, 104)
+    ms["K6_tree_levels"] = cs.cuda_time_ms(lambda: dp.tree_levels(shards, 104), 10)
+print(f"K6 tree_levels at N=104: {ms['K6_tree_levels']:.4f} ms  [{card}]", flush=True)
 print(f"pair_miller at the last mixed-512 level ({llhs[3].shape[0]} pairs): "
       f"{ms['pair_miller_last_level']:.3f} ms; fq_mont_mul kernel alone (profiler, 200 "
       f"launches at 2048 rows): {ms['fq_mont_mul_kernel_only']:.5f} ms  [{card}]", flush=True)

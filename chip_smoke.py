@@ -11,8 +11,12 @@ Phases (any failure raises and the script exits nonzero):
    started together: keccak, fq, scan, pair);
 1. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with its time, the plain version's time and the
-   least time the card could take (its bound): the Keccak kernel (K1) at
-   the data plane's leaf shape; the Fq product (K4) on 2,048 rows with
+   least time the card could take (its bound): the Keccak sponge kernel
+   (K1) at the data plane's leaf shape, and its Merkle tree kernel (the
+   leaves and every level of each value's tree in one launch) at the data
+   plane's N = 104 and at a padded odd shape, with its critical path in
+   permutations and the machine code's instruction counts of both; the
+   Fq product (K4) on 2,048 rows with
    edge limbs; the scan-stage kernels (K2) on one firehose chunk (2,048
    G1 + 2,048 G2 rows) and on the mixed-512 batch in one subset, whose
    forged non-subgroup point must clear its verdict; the pair-stage
@@ -20,11 +24,11 @@ Phases (any failure raises and the script exits nonzero):
    bisection level (down to subsets of two and one request), verdicts
    and Miller values equal to the plain pair stage;
 2. the reliable-broadcast data plane at N = 104 validators, 64,000-byte
-   proposals (one HoneyBadger epoch): every proof checked, sampled proofs
-   and parity held against the host Merkle tree and Reed-Solomon code, the
-   kernels' launch counts over that run, and the times and bounds of its
-   two device stages (the RS bit product, K5; the leaf and level hashing,
-   K6);
+   proposals (one HoneyBadger epoch): all N x N proofs verified, sampled
+   proofs and parity held against the host Merkle tree and Reed-Solomon
+   code, the kernels' launch counts over that run (one tree launch, no
+   sponge launch), and the times and bounds of its two device stages (the
+   RS bit product, K5; the leaf and level hashing, K6);
 3. the share-verification flush: the 10,240-request sig-share firehose
    (all valid, 5 chunks) split into host prep, scan and pair, the
    device's busy share over one warm flush, and the launches of K2 and
@@ -193,26 +197,97 @@ def cuda_time_ms(fn, repeats: int) -> float:
 def profiled_kernel_ms(fn, kernel: str, repeats: int) -> float:
     """Mean device time of one launch of the CUDA function ``kernel``
     over ``repeats`` calls of ``fn``, from ``torch.profiler``'s kernel
-    records: the kernel's own time, without the host dispatch around it."""
+    records: the kernel's own time, without the host dispatch around it.
+    The profiler now and then records no kernel at all late in a long
+    process, so a session that saw none is run again, up to three."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
-    count = sum(e.count for e in events)
-    if not count:
-        raise AssertionError(f"torch.profiler recorded no device time for {kernel}")
-    return sum(e.self_device_time_total for e in events) / count / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if kernel in e.key and e.self_device_time_total > 0]
+        count = sum(e.count for e in events)
+        if count:
+            return sum(e.self_device_time_total for e in events) / count / 1e3
+    raise AssertionError(f"torch.profiler recorded no device time for {kernel} in 3 sessions")
 
 
-def sass_summary(source: str, name: str) -> str:
+_SASS_INSN = r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)(.*)$"
+_SASS_LABEL = r"^\s*(\.L_x_\d+):"
+_SASS_BRANCH = r"^\s*(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))"
+
+
+def sass_loops(listing: str) -> tuple:
+    """The opcodes of one function's SASS listing (``cuobjdump -sass``) in
+    order, and its loops as (first, last) opcode indices: a branch back to
+    an earlier label or address, and the code from there to the branch."""
+    import re
+
+    ops, at, labels, branches = [], {}, {}, []
+    for line in listing.splitlines():
+        label = re.match(_SASS_LABEL, line)
+        if label:
+            labels[label.group(1)] = len(ops)
+            continue
+        insn = re.match(_SASS_INSN, line)
+        if not insn:
+            continue
+        op = insn.group(2).split(".")[0]
+        at[int(insn.group(1), 16)] = len(ops)
+        if op == "BRA":
+            target = re.match(_SASS_BRANCH, insn.group(3).split(",")[-1])
+            if target:
+                branches.append((len(ops), target.group(1) or int(target.group(2), 16)))
+        ops.append(op)
+    loops = []
+    for last, target in branches:
+        first = labels.get(target) if isinstance(target, str) else at.get(target)
+        if first is not None and first <= last:
+            loops.append((first, last))
+    return ops, loops
+
+
+def sass_round_loop(listing: str, rounds: int = 24) -> str:
+    """What a permutation's round loop executes: the innermost loop with
+    the most LOP3s (one round's code, run ``rounds`` times), and the loop
+    around it (a sponge's block loop: its other instructions run once a
+    block for each round loop it holds).  Empty if there is no such loop
+    (rounds as straight-line code)."""
+    from collections import Counter
+
+    ops, loops = sass_loops(listing)
+    inner = [(f, l) for f, l in loops
+             if not any((f2, l2) != (f, l) and f <= f2 and l2 <= l for f2, l2 in loops)]
+    if not inner:
+        return ""
+    f, l = max(inner, key=lambda fl: ops[fl[0]:fl[1] + 1].count("LOP3"))
+    body = Counter(ops[f:l + 1])
+    size = l - f + 1
+    text = (f"round loop {size} instructions (LOP3 {body['LOP3']}, SHF {body['SHF']}): "
+            f"{rounds} x {size} = {rounds * size} executed a permutation")
+    around = [(f2, l2) for f2, l2 in loops if (f2, l2) != (f, l) and f2 <= f and l <= l2]
+    if around:
+        f2, l2 = min(around, key=lambda fl: fl[1] - fl[0])
+        held = [(g, h) for g, h in inner if f2 <= g and h <= l2 and h - g + 1 == size]
+        rest = (l2 - f2 + 1 - len(held) * size) / len(held)
+        text += (f"; the loop around it holds {len(held)} round loop(s) and "
+                 f"{l2 - f2 + 1 - len(held) * size} other instructions: "
+                 f"{rounds * size + rest:.0f} executed a block")
+    return text
+
+
+def sass_summary(source: str, name: str, function: str = "") -> str:
     """Instruction counts of the built kernel's machine code, by opcode
-    (``cuobjdump -sass`` from the toolkit beside ``nvcc``): a check on the
-    operation count its bound assumes."""
+    (``cuobjdump -sass`` from the toolkit beside ``nvcc``), of the whole
+    library or of its functions whose name holds ``function``: the code's
+    size.  For one function, also what its round loop executes
+    (``sass_round_loop``): a check on the operation count its bound
+    assumes."""
     import re
     from collections import Counter
 
@@ -222,11 +297,15 @@ def sass_summary(source: str, name: str) -> str:
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    ops = Counter(m.group(1).split(".")[0] for m in
-                  re.finditer(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)",
-                              sass, re.M))
+    parts = re.split(r"^\s*Function : ", sass, flags=re.M)
+    if function:
+        parts = [p for p in parts[1:] if function in p.split("\n", 1)[0]]
+    ops = Counter(m.group(2).split(".")[0] for p in parts
+                  for m in re.finditer(_SASS_INSN, p, re.M))
     top = ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
-    return f"{name} SASS: {sum(ops.values())} instructions ({top})"
+    text = f"{name} SASS: {sum(ops.values())} instructions of code ({top})"
+    loop = sass_round_loop(parts[0]) if function and len(parts) == 1 else ""
+    return f"{text}; {loop}" if loop else text
 
 
 def phase_kernels(card: str, leaf_shape) -> list:
@@ -268,7 +347,7 @@ def phase_kernels(card: str, leaf_shape) -> list:
     n_ops = batch * nb * KECCAK_INT32_OPS_PER_PERM
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / INT32_OPS_PER_S * 1e3
-    log(sass_summary("keccak", K.KERNEL))
+    log(sass_summary("keccak", K.KERNEL, function="sha3_256_kernel"))
     log(f"keccak_sha3_256 at leaf shape {batch} x {nb} blocks: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"(bytes {bytes_ms:.4f}, int32 ops {ops_ms:.4f}), library none  [{card}]")
@@ -284,7 +363,72 @@ def phase_kernels(card: str, leaf_shape) -> list:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-    }]
+    }, phase_tree(card)]
+
+
+def tree_work(values: int, n: int, s: int) -> tuple:
+    """Permutations and bytes of the Merkle trees of ``values`` values of
+    n shards of s bytes (each shard read once, every level written once),
+    and the permutations on one thread's critical path (a leaf's blocks,
+    then one node a level)."""
+    from hbbft_tpu_torch.ops.device import keccak as K
+    from hbbft_tpu_torch.ops.merkle import _depth
+
+    size = 1 << _depth(n)
+    leaf_blocks = (1 + s) // K.RATE + 1
+    perms = values * (n * leaf_blocks + size - 1)
+    n_bytes = values * (n * s + (2 * size - 1) * 32)
+    return perms, n_bytes, leaf_blocks + _depth(n)
+
+
+def phase_tree(card: str) -> dict:
+    """keccak_merkle_tree against its plain version (tree_levels_plain on
+    the card) and the host Merkle tree, at the data plane's N = 104 shape
+    and at a padded odd one; timed at N = 104."""
+    from hbbft_tpu_torch.ops.device import dataplane as dp
+    from hbbft_tpu_torch.ops.device import keccak as K
+    from hbbft_tpu_torch.ops.merkle import MerkleTree
+
+    rng = np.random.default_rng(7)
+    err = 0
+    for values, n, s in ((104, 104, 1778), (3, 7, 135)):
+        shards = rng.integers(0, 256, size=(values, n, s), dtype=np.uint8)
+        on_card = torch.as_tensor(shards, device="cuda")
+        got = K.merkle_tree_kernel(on_card)
+        want = dp.tree_levels_plain(on_card, n)
+        torch.cuda.synchronize()
+        err = max(err, int((got.to(torch.int16) - want.to(torch.int16)).abs().max()))
+        if err:
+            raise AssertionError(f"keccak_merkle_tree != tree_levels_plain at {values}x{n}x{s}")
+        host = got.cpu().numpy()
+        for v in (0, values - 1):
+            tree = MerkleTree([shards[v, i].tobytes() for i in range(n)])
+            if host[v].tobytes() != b"".join(h for level in tree.levels for h in level):
+                raise AssertionError(f"keccak_merkle_tree != host MerkleTree at value {v}, "
+                                     f"{values}x{n}x{s}")
+        log(f"keccak_merkle_tree {values} values x {n} shards x {s} bytes: byte-identical to "
+            f"tree_levels_plain and the host MerkleTree  [{card}]")
+    # Timed at N = 104 (the loop's last shape is the padded one; redo it).
+    values, n, s = 104, 104, 1778
+    on_card = torch.as_tensor(rng.integers(0, 256, size=(values, n, s), dtype=np.uint8),
+                              device="cuda")
+    ms = cuda_time_ms(lambda: K.merkle_tree_kernel(on_card), 20)
+    plain_ms = cuda_time_ms(lambda: dp.tree_levels_plain(on_card, n), 3)
+    perms, n_bytes, path = tree_work(values, n, s)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = perms * KECCAK_INT32_OPS_PER_PERM / INT32_OPS_PER_S * 1e3
+    log(sass_summary("keccak", K.TREE_KERNEL, function="merkle_tree_kernel"))
+    log(f"keccak_merkle_tree at N={n} ({values} trees, {s}-byte shards): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+        f"int32 ops {ops_ms:.4f}; {perms} permutations, {n_bytes} bytes); critical path {path} "
+        f"permutations on one thread = {ms * 1e3 / path:.2f} us each  [{card}]")
+    return {
+        "name": K.TREE_KERNEL, "route": "cuda", "source": "hbbft_tpu_torch/csrc/keccak.cu",
+        "replaces": "hbbft_tpu/ops/jaxops/keccak_pallas.py:50", "launches": None,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+    }
 
 
 def free_mib() -> float:
@@ -674,6 +818,7 @@ def phase_pair(card: str, firehose: list, mixed: list, bad: list) -> list:
 
 def phase_dataplane(card: str) -> dict:
     from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.ops.device import keccak as K
     from hbbft_tpu_torch.ops.device.dataplane import encode_and_prove
     from hbbft_tpu_torch.ops.gf256 import ReedSolomon
     from hbbft_tpu_torch.ops.merkle import MerkleTree
@@ -702,31 +847,30 @@ def phase_dataplane(card: str) -> dict:
             raise AssertionError(f"value {v}: parity != host ReedSolomon.encode")
         tree = MerkleTree(shards)
         for i in range(n):
-            p = proofs[v][i]
-            if p.root != tree.root or p.path != tree.proof(i).path or not p.validate(n):
-                raise AssertionError(f"value {v} shard {i}: proof does not verify")
-    roots_ok = all(proofs[v][i].root == proofs[v][0].root for v in range(n) for i in range(n))
-    if not roots_ok:
-        raise AssertionError("proofs of one value disagree on the root")
-    # One launch for the leaves and one per tree level (128 leaves: 7).
-    if launches.get("keccak_sha3_256", 0) != 1 + 7:
-        raise AssertionError(f"keccak launches {launches} != 8 over one data-plane epoch")
+            if proofs[v][i].root != tree.root or proofs[v][i].path != tree.proof(i).path:
+                raise AssertionError(f"value {v} shard {i}: proof != host MerkleTree's")
+    bad = [(v, i) for v in range(n) for i in range(n)
+           if not proofs[v][i].validate(n) or proofs[v][i].root != proofs[v][0].root]
+    if bad:
+        raise AssertionError(f"{len(bad)} proofs do not verify, first {bad[:3]}")
+    # One tree launch for the leaves and every level; no sponge launch.
+    if launches.get(K.TREE_KERNEL, 0) != 1 or launches.get(K.KERNEL, 0) != 0:
+        raise AssertionError(f"keccak launches {launches} over one data-plane epoch: expected "
+                             f"1 {K.TREE_KERNEL} and no {K.KERNEL}")
 
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         encode_and_prove(values, k, n, device="cuda")
         times.append(time.perf_counter() - t0)
-    log(f"data plane N={n} k={k} 64000-byte values: {n}x{n} proofs verified; "
-        f"keccak launches {launches.get('keccak_sha3_256', 0)}; first run {epoch_s:.3f} s, "
+    log(f"data plane N={n} k={k} 64000-byte values: all {n}x{n} proofs verified; "
+        f"keccak launches {json.dumps(launches, sort_keys=True)}; first run {epoch_s:.3f} s, "
         f"median of 3 warm runs {statistics.median(times):.3f} s per epoch  [{card}]")
 
     # Its two device stages alone: the RS bit product (K5) and the leaf and
-    # level hashing on the Keccak kernel (K6); the rest of an epoch is host
+    # level hashing on the tree kernel (K6); the rest of an epoch is host
     # packing and proof assembly.
-    from hbbft_tpu_torch.ops.device import keccak as K
     from hbbft_tpu_torch.ops.device.dataplane import _pack, rs_shards, tree_levels
-    from hbbft_tpu_torch.ops.merkle import _depth
 
     with torch.inference_mode():
         data = torch.as_tensor(np.stack([_pack(v, k)[0] for v in values]), device="cuda")
@@ -734,20 +878,17 @@ def phase_dataplane(card: str) -> dict:
         rs_ms = cuda_time_ms(lambda: rs_shards(data, n), 10)
         tree_ms = cuda_time_ms(lambda: tree_levels(shards, n), 10)
     s = shards.shape[2]
-    size = 1 << _depth(n)
     rs_bytes = len(values) * (k + n) * s
     rs_ops = 2 * (8 * (n - k)) * (8 * k) * len(values) * s
     rs_bound, rs_by = max((rs_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                           (rs_ops / INT8_OPS_PER_S * 1e3, "operations"))
-    leaf_blocks = (1 + s) // K.RATE + 1
-    perms = len(values) * (n * leaf_blocks + size - 1)
-    tree_bytes = len(values) * (n * s + (2 * size - 1) * 32)
+    perms, tree_bytes, _ = tree_work(len(values), n, s)
     tree_bound, tree_by = max((tree_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                               (perms * KECCAK_INT32_OPS_PER_PERM / INT32_OPS_PER_S * 1e3,
                                "operations"))
     log(f"data plane stages at N={n}: RS bit product (K5, plain matmul) {rs_ms:.4f} ms, bound "
         f"{rs_bound:.4f} ms ({rs_by}; {rs_ops} int8 multiply-add ops, {rs_bytes} bytes); leaf and "
-        f"level hashing (K6, {1 + _depth(n)} Keccak launches) {tree_ms:.4f} ms, "
+        f"level hashing (K6, tree_levels: one {K.TREE_KERNEL} launch) {tree_ms:.4f} ms, "
         f"bound {tree_bound:.4f} ms ({tree_by}; {perms} permutations, {tree_bytes} bytes)  "
         f"[{card}]")
     return launches

@@ -10,13 +10,16 @@ shards).  Three device stages:
 1. RS parity for all values in ONE GF(2) bit product (the per-value
    encode matrices are identical, so values concatenate along the column
    axis of a single ``ENC_BITS @ data_bits``),
-2. leaf hashes for all V×N shards in one batched SHA3 call,
-3. each tree level for all values in one batched SHA3 call.
+2. leaf hashes for all V×N shards,
+3. each tree level for all values.
 
-Stage 1 is :func:`rs_shards`, stages 2 and 3 :func:`tree_levels`.
+Stage 1 is :func:`rs_shards`, stages 2 and 3 :func:`merkle_tree` (and its
+per-level views, :func:`tree_levels`).
 
-Stages 2 and 3 run the hand-written Keccak kernel on a CUDA device: one
-launch for the leaves and one per level.  Bit-exact with the host path
+On a CUDA device stages 2 and 3 are one launch of the hand-written Merkle
+tree kernel (``csrc/keccak.cu``), which reads the shards as they are; on
+the CPU they run :func:`tree_levels_plain`, the plain sponge once for the
+leaves and once per level.  Bit-exact with the host path
 (:class:`~hbbft_tpu_torch.ops.merkle.MerkleTree`,
 :class:`~hbbft_tpu_torch.ops.gf256.ReedSolomon`).
 """
@@ -59,16 +62,21 @@ def rs_shards(data: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([data, parity.transpose(0, 1)], dim=1)
 
 
-def tree_levels(shards_vn: torch.Tensor, n: int) -> List[torch.Tensor]:
-    """Stages 2 and 3: the leaf hashes H(0x00 || shard) of all V*n shards
-    in one call, then one call per tree level (K6, on the Keccak kernel):
-    [(V, width, 32) uint8] from the leaves up to the roots."""
+def _sha3_plain(msgs: torch.Tensor) -> torch.Tensor:
+    return dk.sha3_256_padded(dk.pad_tensor(msgs))
+
+
+def tree_levels_plain(shards_vn: torch.Tensor, n: int) -> torch.Tensor:
+    """Stages 2 and 3 in plain PyTorch on the shards' device: the leaf
+    hashes H(0x00 || shard) of all V*n shards in one sponge call, then one
+    call per tree level.  Returns every level, bottom up, as one (V,
+    2 size - 1, 32) uint8 tensor (size = the next power of two >= n)."""
     V, _, shard_len = shards_vn.shape
     dev = shards_vn.device
     size = 1 << _depth(n)
     leaves_in = torch.zeros((V * n, 1 + shard_len), dtype=torch.uint8, device=dev)
     leaves_in[:, 1:] = shards_vn.reshape(V * n, shard_len)
-    leaf_hashes = dk.sha3_256_batch(leaves_in).reshape(V, n, 32)
+    leaf_hashes = _sha3_plain(leaves_in).reshape(V, n, 32)
     if size > n:
         pad = torch.as_tensor(
             np.frombuffer(hashlib.sha3_256(b"\x00").digest(), dtype=np.uint8).copy(),
@@ -80,10 +88,43 @@ def tree_levels(shards_vn: torch.Tensor, n: int) -> List[torch.Tensor]:
     levels = [leaf_hashes]  # (V, width, 32)
     width = size
     while width > 1:
-        cur = levels[-1].reshape(V * (width // 2), 64)
-        levels.append(dk.merkle_level(0x01, cur).reshape(V, width // 2, 32))
+        pairs = levels[-1].reshape(V * (width // 2), 64)
+        head = torch.ones((pairs.shape[0], 1), dtype=torch.uint8, device=dev)
+        levels.append(_sha3_plain(torch.cat([head, pairs], dim=1)).reshape(V, width // 2, 32))
         width //= 2
-    return levels
+    return torch.cat(levels, dim=1)
+
+
+def merkle_tree(shards_vn: torch.Tensor, n: int) -> torch.Tensor:
+    """Stages 2 and 3 (K6): every level of each value's tree, bottom up, as
+    one (V, 2 size - 1, 32) uint8 tensor — the layout of the reference's
+    ``ops/native.py`` ``merkle_levels``.  A CUDA tensor goes through the
+    tree kernel (one launch), a CPU tensor through :func:`tree_levels_plain`."""
+    if shards_vn.shape[1] != n:
+        raise ValueError(f"{shards_vn.shape[1]} shards per value, expected {n}")
+    if shards_vn.device.type == "cuda":
+        return dk.merkle_tree_kernel(shards_vn.contiguous())
+    return tree_levels_plain(shards_vn, n)
+
+
+def level_views(tree):
+    """The levels of a (V, 2 size - 1, 32) tree (tensor or array) as views,
+    [(V, width, 32)] from the leaves up to the roots."""
+    width = (tree.shape[1] + 1) // 2
+    at = 0
+    levels = []
+    while True:
+        levels.append(tree[:, at:at + width])
+        at += width
+        if width == 1:
+            return levels
+        width //= 2
+
+
+def tree_levels(shards_vn: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """Stages 2 and 3: [(V, width, 32) uint8] from the leaves up to the
+    roots, views into :func:`merkle_tree`'s tensor."""
+    return level_views(merkle_tree(shards_vn, n))
 
 
 @torch.inference_mode()
@@ -107,10 +148,10 @@ def encode_and_prove(
     V = len(values)
     data = torch.as_tensor(np.stack([p for p, _ in packs]), device=dev)  # (V, k, s)
     shards_vn = rs_shards(data, n)
-    levels = tree_levels(shards_vn, n)
+    tree = merkle_tree(shards_vn, n)
 
-    # One copy back to the host; proofs are assembled there.
-    host_levels = [lv.cpu().numpy() for lv in levels]
+    # One copy of the tree back to the host; proofs are assembled there.
+    host_levels = level_views(tree.cpu().numpy())
     shards_np = shards_vn.cpu().numpy()
     roots = host_levels[-1][:, 0, :]
     out: List[List[Proof]] = []

@@ -12,6 +12,10 @@ bit-identical to :func:`hashlib.sha3_256`.
 * :func:`sha3_256_kernel` launches the hand-written CUDA kernel
   (``csrc/keccak.cu``): one thread per message, the whole sponge in one
   launch.  It counts its launches in ``build.LAUNCHES["keccak_sha3_256"]``.
+* :func:`merkle_tree_kernel` launches the Merkle tree kernel of the same
+  source: every level of one tree per value, leaves hashed straight from
+  the shards, in one launch (``build.LAUNCHES["keccak_merkle_tree"]``).
+  Its plain version is ``dataplane.tree_levels_plain``.
 * :func:`sha3_256_batch` pads and routes by the tensor's device: the
   kernel for a CUDA tensor, the plain version for a CPU tensor.
 """
@@ -31,6 +35,7 @@ from hbbft_tpu_torch.device import DeviceLike, resolve
 RATE = 136  # SHA3-256 rate in bytes
 RATE_WORDS = RATE // 8
 KERNEL = "keccak_sha3_256"
+TREE_KERNEL = "keccak_merkle_tree"
 
 _ROUND_CONSTANTS = [
     0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
@@ -93,9 +98,19 @@ def _t(name: str, device: torch.device) -> torch.Tensor:
 
 @lru_cache(maxsize=1)
 def _launcher():
-    """The kernel's C entry point, built and loaded at first use."""
+    """The sponge kernel's C entry point, built and loaded at first use."""
     fn = build.load("keccak").hbbft_sha3_256
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=1)
+def _tree_launcher():
+    """The tree kernel's C entry point, built and loaded at first use."""
+    fn = build.load("keccak").hbbft_merkle_tree
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -233,8 +248,8 @@ def sha3_256_kernel(padded: torch.Tensor) -> torch.Tensor:
     batch, nb = _check_padded(padded)
     if padded.device.type != "cuda":
         raise ValueError("sha3_256_kernel needs a CUDA tensor")
-    if not padded.is_contiguous() or padded.data_ptr() % 8:
-        raise ValueError("padded messages must be contiguous and 8-byte aligned")
+    if not padded.is_contiguous():
+        raise ValueError("padded messages must be contiguous")
     out = torch.empty((batch, 32), dtype=torch.uint8, device=padded.device)
     if batch == 0:
         return out
@@ -244,6 +259,41 @@ def sha3_256_kernel(padded: torch.Tensor) -> torch.Tensor:
         rc = fn(padded.data_ptr(), out.data_ptr(), batch, nb, stream)
     build.LAUNCHES[KERNEL] += 1
     build.check(rc, "hbbft_sha3_256")
+    return out
+
+
+def tree_size(n: int) -> int:
+    """Leaf slots of a Merkle tree over n leaves: the next power of two."""
+    return 1 << (n - 1).bit_length()
+
+
+def merkle_tree_kernel(shards: torch.Tensor) -> torch.Tensor:
+    """The tree kernel on a (V, n, s) uint8 CUDA tensor of shards -> (V,
+    2 size - 1, 32) digests: every level of each value's tree, bottom up
+    (leaves SHA3-256(0x00 || shard) padded with H(0x00) to size = the next
+    power of two, then SHA3-256(0x01 || left || right)).  Launches on the
+    current stream; does not synchronise."""
+    if shards.dtype != torch.uint8 or shards.dim() != 3:
+        raise ValueError("shards must be a (V, n, s) uint8 tensor")
+    if shards.device.type != "cuda":
+        raise ValueError("merkle_tree_kernel needs a CUDA tensor")
+    if not shards.is_contiguous():
+        raise ValueError("shards must be contiguous")
+    values, n, s = shards.shape
+    if n == 0:
+        raise ValueError("a Merkle tree needs at least one leaf")
+    if max(values, n, s) >= 2**31:
+        raise ValueError("shard tensor dimensions must fit 32 bits")
+    out = torch.empty((values, 2 * tree_size(n) - 1, 32), dtype=torch.uint8,
+                      device=shards.device)
+    if values == 0:
+        return out
+    fn = _tree_launcher()
+    with torch.cuda.device(shards.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(shards.data_ptr(), out.data_ptr(), values, n, s, stream)
+    build.LAUNCHES[TREE_KERNEL] += 1
+    build.check(rc, "hbbft_merkle_tree")
     return out
 
 

@@ -3,7 +3,7 @@ versions, on the card.  A CUDA kernel has no CPU or interpret mode, so
 these tests skip without a card; run them on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q`` (the
 shared conftest imports jax, which this file does not need).  Tolerance:
-exact — byte-identical digests and proofs; field elements equal as
+exact — byte-identical digests, Merkle levels and proofs; field elements equal as
 canonical values mod P; points equal as canonical affine points (or both
 the identity); verdicts equal.
 """
@@ -29,6 +29,7 @@ from hbbft_tpu_torch.crypto.device import scan as dscan
 from hbbft_tpu_torch.crypto.device.backend import TorchBackend
 from hbbft_tpu_torch.ops.device import dataplane as dp
 from hbbft_tpu_torch.ops.device import keccak as K
+from hbbft_tpu_torch.ops.merkle import MerkleTree
 
 pytestmark = pytest.mark.cuda
 
@@ -42,16 +43,48 @@ def cuda():
 
 @pytest.mark.parametrize("batch,m", [(1, 0), (33, 65), (1000, 135), (257, 136), (64, 1779)])
 def test_keccak_kernel_matches_plain_and_hashlib(cuda, batch, m):
+    """The sponge kernel against the plain sponge and hashlib, in one
+    launch, on padded messages that start at an offset that is not
+    8-byte aligned (the kernel takes any start address)."""
     rng = np.random.default_rng(batch + m)
     msgs = rng.integers(0, 256, size=(batch, m), dtype=np.uint8)
-    padded = K.pad_tensor(torch.as_tensor(msgs, device=cuda))
+    aligned = K.pad_tensor(torch.as_tensor(msgs, device=cuda))
+    offset = (batch + m) % 13
+    flat = torch.zeros(aligned.numel() + offset, dtype=torch.uint8, device=cuda)
+    flat[offset:] = aligned.reshape(-1)
+    padded = flat[offset:].view(aligned.shape)
     build.reset_launches()
     got = K.sha3_256_kernel(padded)
     assert build.LAUNCHES[K.KERNEL] == 1
-    assert torch.equal(got, K.sha3_256_padded(padded))
+    assert torch.equal(got, K.sha3_256_padded(aligned))
     host = got.cpu().numpy()
     for i in range(0, batch, max(1, batch // 8)):
         assert host[i].tobytes() == hashlib.sha3_256(msgs[i].tobytes()).digest()
+
+
+TREE_SHAPES = [(v, n, s) for v in (1, 3) for n in (1, 2, 3, 7, 10, 104)
+               for s in (1, 134, 135, 136, 1778)] + [(104, 104, 1778)]
+
+
+@pytest.mark.parametrize("values,n,s", TREE_SHAPES)
+def test_merkle_tree_kernel_matches_plain_and_hashlib(cuda, values, n, s):
+    """Every level of every tree, byte for byte, against the plain tree
+    on the card and the host MerkleTree; the shards start at an offset
+    that is not 16-byte aligned, in one launch."""
+    rng = np.random.default_rng(values * 100_000 + n * 10_000 + s)
+    shards = rng.integers(0, 256, size=(values, n, s), dtype=np.uint8)
+    offset = (n + s) % 13
+    flat = torch.zeros(shards.size + offset, dtype=torch.uint8, device=cuda)
+    flat[offset:] = torch.as_tensor(shards.reshape(-1), device=cuda)
+    on_card = flat[offset:].view(values, n, s)
+    build.reset_launches()
+    got = K.merkle_tree_kernel(on_card)
+    assert build.LAUNCHES[K.TREE_KERNEL] == 1
+    assert torch.equal(got, dp.tree_levels_plain(on_card, n))
+    host = got.cpu().numpy()
+    for v in sorted({0, values - 1}):
+        tree = MerkleTree([shards[v, i].tobytes() for i in range(n)])
+        assert host[v].tobytes() == b"".join(h for level in tree.levels for h in level)
 
 
 def test_dataplane_on_card_matches_cpu(cuda):
@@ -59,7 +92,8 @@ def test_dataplane_on_card_matches_cpu(cuda):
     values = [rng.integers(0, 256, 3000, dtype=np.uint8).tobytes() for _ in range(10)]
     build.reset_launches()
     on_card = dp.encode_and_prove(values, 4, 10, device=cuda)
-    assert build.LAUNCHES[K.KERNEL] == 1 + 4  # leaves + one per tree level
+    assert build.LAUNCHES[K.TREE_KERNEL] == 1  # leaves and every level
+    assert build.LAUNCHES[K.KERNEL] == 0
     on_cpu = dp.encode_and_prove(values, 4, 10, device="cpu")
     assert on_card == on_cpu
 

@@ -84,3 +84,32 @@ def test_dataplane_config2_shape_matches_jax(rng):
     assert tree.root == RefMerkleTree(shards).root
     for i in range(n):
         assert _fields([[got[0][i]]]) == _fields([[tree.proof(i)]])
+
+
+def test_tree_levels_are_views_of_one_tree_and_proofs_hold(rng):
+    """The plain tree path: every level, bottom up, in one (V, 2 size - 1,
+    32) tensor (the reference's ``merkle_levels`` layout), the levels as
+    views into it, each equal to the host MerkleTree's; and proofs of a
+    padded tree (n = 3, size 4) equal the JAX package's and the host's."""
+    V, n, s = 3, 5, 40
+    shards = torch.as_tensor(rng.integers(0, 256, size=(V, n, s), dtype=np.uint8))
+    tree = tdp.merkle_tree(shards, n)
+    assert tree.shape == (V, 2 * 8 - 1, 32)
+    levels = tdp.level_views(tree)
+    assert [lv.shape[1] for lv in levels] == [8, 4, 2, 1]
+    base = tree.untyped_storage().data_ptr()
+    assert all(lv.untyped_storage().data_ptr() == base for lv in levels)
+    assert [lv.tolist() for lv in tdp.tree_levels(shards, n)] == [lv.tolist() for lv in levels]
+    for v in range(V):
+        host = RefMerkleTree([bytes(shards[v, i].numpy()) for i in range(n)])
+        assert [[bytes(h.numpy()) for h in lv[v]] for lv in levels] == host.levels
+
+    k, n = 2, 3
+    values = [bytes(rng.integers(0, 256, 90, dtype=np.uint8)) for _ in range(4)]
+    got = tdp.encode_and_prove(values, k, n, device="cpu")
+    assert _fields(got) == _fields(jdp.encode_and_prove(values, k, n))
+    rs = ref_gf.ReedSolomon(k, n)
+    for v, value in enumerate(values):
+        packed, _ = jdp._pack(value, k)
+        host = RefMerkleTree(rs.encode([bytes(r) for r in packed]))
+        assert _fields([got[v]]) == _fields([[host.proof(i) for i in range(n)]])

@@ -72,17 +72,21 @@ def test_no_source_imports_the_reference_package():
 
 
 def test_no_source_loads_the_host_build_of_the_kernels():
-    """``csrc/host_check.cc`` (the kernels' headers built for the host) is
-    for the tests only: no module of the port names it."""
+    """``csrc/host_check.cc`` and ``csrc/keccak_check.cc`` (the kernels'
+    headers built for the host) are for the tests only, and
+    ``csrc/keccak_probe.cu`` for ``benchmarks_torch/keccak_rate.py``: no
+    module of the port names them."""
+    names = ("host_check", "keccak_check", "keccak_probe")
     offenders = []
     for dirpath, _dirnames, filenames in os.walk(PKG):
         for fn in filenames:
             if fn.endswith(".py"):
                 path = os.path.join(dirpath, fn)
-                if "host_check" in open(path, encoding="utf-8").read():
-                    offenders.append(path)
+                src = open(path, encoding="utf-8").read()
+                offenders += [(path, name) for name in names if name in src]
     assert offenders == []
     assert os.path.exists(os.path.join(PKG, "csrc", "host_check.cc"))
+    assert os.path.exists(os.path.join(PKG, "csrc", "keccak_check.cc"))
 
 
 def test_entry_points_refuse_without_a_card():

@@ -18,6 +18,7 @@ import torch
 from hbbft_tpu.ops import merkle as ref_merkle
 from hbbft_tpu.ops.jaxops import keccak as jk
 from hbbft_tpu_torch import build
+from hbbft_tpu_torch.ops.device import dataplane as tdp
 from hbbft_tpu_torch.ops.device import keccak as tk
 
 # Small tensors: intra-op threads only contend with the other test workers.
@@ -76,6 +77,11 @@ def test_merkle_level_matches_jax_and_host(rng):
 def test_cpu_path_never_counts_a_kernel_launch(rng):
     build.reset_launches()
     tk.sha3_256_batch(rng.integers(0, 256, size=(3, 10), dtype=np.uint8), device="cpu")
+    shards = torch.as_tensor(rng.integers(0, 256, size=(2, 3, 5), dtype=np.uint8))
+    tdp.tree_levels(shards, 3)
     assert build.LAUNCHES[tk.KERNEL] == 0
+    assert build.LAUNCHES[tk.TREE_KERNEL] == 0
     with pytest.raises(ValueError):
         tk.sha3_256_kernel(tk.pad_tensor(torch.zeros((1, 3), dtype=torch.uint8)))
+    with pytest.raises(ValueError):
+        tk.merkle_tree_kernel(shards)
