@@ -34,7 +34,18 @@ Phases (any failure raises and the script exits nonzero):
    device's busy share over one warm flush, and the launches of K2 and
    K3 over a flush; then a 512-request mixed batch with two bad shares
    and one forged non-subgroup point, whose verdicts must equal the host
-   ``BatchedBackend``/``EagerBackend``.
+   ``BatchedBackend``/``EagerBackend``;
+4. the consensus plane: (a) one HoneyBadger epoch at 16 validators (the
+   last 5 silent) and 256 transactions over BLS, every share check of
+   every node's pool flushed through ``TorchBackend`` on the card (K2,
+   K3, K4), committing one identical batch on every correct node with
+   every verdict True, its first 4 flushes held against the host
+   ``BatchedBackend``, with the flush sizes, the backend's stages and
+   the device's busy share over the epoch; (b) two 4-node epochs with a
+   tampering validator whose doubled shares the card must reject, every
+   flush held against the host; (c) ``batch_propose`` over 16 Broadcast
+   instances on the card (K1's tree kernel, K5), its proofs equal to
+   per-instance ``handle_input``.
 
 The last three lines are one JSON object with every kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.  With no CUDA card, or
@@ -944,6 +955,68 @@ def _mixed_512(keys, Request, suite, G2Elem, rogue_pt):
     return reqs, sorted([bad_sig, forged, bad_dec])
 
 
+class FlushLog:
+    """A ``CryptoBackend`` in front of another: passes every flush on,
+    keeps its requests and verdicts (checked against the host afterwards,
+    outside the timed run), and times it on the host clock."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.flushes: list = []  # (requests, verdicts)
+        self.seconds = 0.0
+
+    def verify_batch(self, reqs):
+        reqs = list(reqs)
+        t0 = time.perf_counter()
+        out = self.inner.verify_batch(reqs)
+        self.seconds += time.perf_counter() - t0
+        self.flushes.append((reqs, list(out)))
+        return out
+
+    def sizes(self) -> list:
+        return [len(r) for r, _ in self.flushes]
+
+    def verdicts(self) -> list:
+        return [v for _, out in self.flushes for v in out]
+
+
+def instrument(be) -> dict:
+    """Time ``TorchBackend`` ``be``'s stages over the flushes that follow,
+    each with a sync around it: host prep, scan (``_scan``'s time, the
+    prep inside it included), the pair check of each flush, the bisection levels after a failed
+    check (their own prep, scan and pair included), and the single failing
+    requests that bisection sends to the host ``EagerBackend``."""
+    stats = {"prep": 0.0, "scan": 0.0, "pair": 0.0, "bisect": 0.0, "bisections": 0,
+             "eager": 0.0, "eager_requests": 0}
+
+    def timed(name, fn, count=None, of=lambda args: 1):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stats[name] += time.perf_counter() - t0
+            if count:
+                stats[count] += of(args)
+            return out
+        return run
+
+    be._scan_prep = timed("prep", be._scan_prep)
+    be._scan = timed("scan", be._scan)
+    be._check_parts = timed("pair", be._check_parts)
+    be._bisect = timed("bisect", be._bisect, "bisections")
+    be._eager.verify_batch = timed("eager", be._eager.verify_batch, "eager_requests",
+                                   lambda args: len(args[0]))
+    return stats
+
+
+def uninstrument(be) -> None:
+    """Take :func:`instrument`'s timers off ``be``."""
+    for name in ("_scan_prep", "_scan", "_check_parts", "_bisect"):
+        delattr(be, name)
+    del be._eager.verify_batch
+
+
 def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
     """The flush end to end on the card; returns the kernels' launches
     over one warm firehose flush (the counts set to 0 just before it)."""
@@ -977,25 +1050,11 @@ def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
 
     # First flush: host prep, scan and pair each timed with a sync around
     # it (the scan's own time is _scan's less the prep inside it).
-    stage = {"prep": 0.0, "scan": 0.0, "pair": 0.0}
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stage[name] += time.perf_counter() - t0
-            return out
-        return run
-
-    be._scan_prep = timed("prep", be._scan_prep)
-    be._scan = timed("scan", be._scan)
-    be._check_parts = timed("pair", be._check_parts)
+    stage = instrument(be)
     t0 = time.perf_counter()
     first = be.verify_batch(reqs)
     first_s = time.perf_counter() - t0
-    del be._scan_prep, be._scan, be._check_parts
+    uninstrument(be)
     if not all(first):
         raise AssertionError("firehose: a valid share was rejected")
     scan_s = stage["scan"] - stage["prep"]
@@ -1054,6 +1113,227 @@ def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
     return launches
 
 
+def _hb_run(NetBuilder, HoneyBadger, EncryptionSchedule, suite, backend, n: int, seed: int,
+            contributions, adversary=None, num_faulty=None):
+    """``tests/test_honey_badger.py`` ``build_hb_net`` + ``run_epochs`` on
+    ``suite`` and ``backend`` (a ``FlushLog``), pools flushed when the net
+    idles, one epoch per entry of ``contributions`` (each a function of
+    the node id); returns the net and the proposed contributions."""
+    b = (NetBuilder(n, seed=seed).suite(suite).backend(lambda s: backend)
+         .flush_every(100_000)
+         .protocol(lambda ni, sink, rng: HoneyBadger(
+             ni, sink, session_id=b"hb-test", max_future_epochs=3,
+             encryption_schedule=EncryptionSchedule.always())))
+    if adversary is not None:
+        b = b.adversary(adversary)
+    if num_faulty is not None:
+        b = b.num_faulty(num_faulty)
+    net = b.build()
+    proposed = []
+    for epoch, contribution in enumerate(contributions):
+        txs = {nid: contribution(nid) for nid in net.correct_ids}
+        proposed.append(txs)
+        for nid in net.correct_ids:
+            net.send_input(nid, txs[nid])
+        net.crank_until(lambda nn: all(len(nn.node(i).outputs) > epoch for i in nn.correct_ids),
+                        max_cranks=2_000_000)
+    return net, proposed
+
+
+def _check_batches(net, proposed, what: str) -> None:
+    """Every correct node commits the same batch per epoch, with at least
+    N - f contributions, each exactly as proposed."""
+    for epoch, txs in enumerate(proposed):
+        batches = [net.node(i).outputs[epoch] for i in net.correct_ids]
+        if any(b != batches[0] for b in batches):
+            raise AssertionError(f"{what}: epoch {epoch} batches differ between correct nodes")
+        got = batches[0].contribution_map()
+        if batches[0].epoch != epoch or len(got) < net.node(net.correct_ids[0]).netinfo.num_correct:
+            raise AssertionError(f"{what}: epoch {epoch} batch {batches[0]} too small")
+        wrong = [p for p, c in got.items() if p in txs and c != txs[p]]
+        if wrong:
+            raise AssertionError(f"{what}: epoch {epoch} contributions of {wrong} != proposed")
+
+
+def _host_verdicts(args) -> list:
+    """One flush's verdicts from the host ``BatchedBackend`` (a worker of
+    :func:`_host_check`'s process pool)."""
+    from hbbft_tpu_torch.crypto.backend import BatchedBackend
+
+    suite, reqs = args
+    return BatchedBackend(suite).verify_batch(reqs)
+
+
+def _host_check(suite, log_, first: int | None, what: str) -> float:
+    """Hold the card's verdicts of the first ``first`` flushes (all when
+    None) against the host ``BatchedBackend`` on the same requests, one
+    flush per worker process (host pairings take ~1 s a flush), and
+    return the wall time that took."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    flushes = log_.flushes[:first]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=min(len(flushes), os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        host = list(pool.map(_host_verdicts, [(suite, reqs) for reqs, _ in flushes]))
+    for i, ((reqs, card), want) in enumerate(zip(flushes, host)):
+        if want != card:
+            raise AssertionError(f"{what}: flush {i} ({len(reqs)} requests): "
+                                 f"TorchBackend verdicts != BatchedBackend's")
+    return time.perf_counter() - t0
+
+
+def _stage_line(stats: dict, total: float) -> str:
+    return (f"TorchBackend {total:.3f} s over the flushes: host prep {stats['prep']:.3f} s, "
+            f"scan {stats['scan'] - stats['prep']:.3f} s, pair {stats['pair']:.3f} s, "
+            f"bisection {stats['bisect']:.3f} s in {stats['bisections']} flushes (its own "
+            f"prep and scan counted above too), EagerBackend leaf {stats['eager']:.3f} s for "
+            f"{stats['eager_requests']} requests")
+
+
+def phase_consensus(card: str) -> dict:
+    """The consensus plane on the card: a 16-validator HoneyBadger epoch
+    (a), a 4-node epoch pair with a tampering validator (b), and the
+    proposers' data plane from the protocol layer (c).  Returns the
+    kernels' launches over (a)-(c), the counts set to 0 just before."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+    from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+    from hbbft_tpu_torch.net import NetBuilder, TamperingAdversary
+    from hbbft_tpu_torch.ops.device import keccak as K
+    from hbbft_tpu_torch.protocols import broadcast as pbc
+    from hbbft_tpu_torch.protocols.honey_badger import EncryptionSchedule, HoneyBadger
+    from hbbft_tpu_torch.utils import serde
+
+    suite = BLSSuite()
+    hb = (NetBuilder, HoneyBadger, EncryptionSchedule, suite)
+    flush_kernels = (*dscan.KERNELS, *dpair.KERNELS)
+    build.reset_launches()
+
+    # (a) honeybadger-16: BASELINE.json:9, tests/test_honey_badger.py:84's
+    # shape: 16 validators, the last f = 5 silent, 256 transactions.
+    be = TorchBackend(suite)
+    stats = instrument(be)
+    rec = FlushLog(be)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net, proposed = _hb_run(*hb, rec, n=16, seed=4, contributions=[
+            lambda nid: [f"tx-{nid}-{i}" for i in range(256 // 16)]])
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    launches_a = dict(build.LAUNCHES)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    share = f"{100 * busy_us / (epoch_s * 1e6):.2f}%" if busy_us > 0 else "not measured"
+    _check_batches(net, proposed, "honeybadger-16")
+    faults = [(nid, f.node_id, f.kind) for nid in net.correct_ids for f in net.node(nid).faults]
+    if faults:
+        raise AssertionError(f"honeybadger-16: faults recorded with no faulty sender: {faults[:5]}")
+    verdicts = rec.verdicts()
+    if not all(verdicts):
+        raise AssertionError(f"honeybadger-16: {verdicts.count(False)} of {len(verdicts)} "
+                             f"verdicts False, though no share was forged")
+    missing = [k for k in flush_kernels if launches_a.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"honeybadger-16 launched no {missing}: {launches_a}")
+    held = 4
+    host_s = _host_check(suite, rec, held, "honeybadger-16")
+    sizes = rec.sizes()
+    log(f"consensus (a) honeybadger-16: 16 validators (5 silent), 256 tx, BLS, one epoch: "
+        f"{len(net.node(0).outputs[0].contributions)} contributions committed alike on all 11 "
+        f"correct nodes, no fault; epoch {epoch_s:.3f} s wall under torch.profiler; "
+        f"{len(sizes)} flushes, {sum(sizes)} requests, largest {max(sizes)}, median "
+        f"{statistics.median(sizes)}; all verdicts True; first {held} flushes == "
+        f"BatchedBackend (host, {os.cpu_count()} processes, {host_s:.2f} s)  [{card}]")
+    log(f"consensus (a) {_stage_line(stats, rec.seconds)}; device busy {busy_us:.0f} us of "
+        f"{epoch_s * 1e6:.0f} us = {share}  [{card}]")
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:6]
+    log("consensus (a) device time by kernel: " + "; ".join(
+        f"{e.key[:40]} {e.self_device_time_total:.0f} us x{e.count}" for e in top))
+    log(f"consensus (a) launches: {json.dumps(launches_a, sort_keys=True)}")
+
+    # (b) honeybadger-4-tamper: tests/test_tampering_adversary.py:67 at
+    # seed 101: one faulty validator runs the real algorithm and doubles
+    # its signature and decryption shares; two epochs.
+    before = dict(build.LAUNCHES)
+    be = TorchBackend(suite)
+    stats = instrument(be)
+    rec = FlushLog(be)
+    t0 = time.perf_counter()
+    net, proposed = _hb_run(*hb, rec, n=4, seed=101, contributions=[
+        lambda nid: [f"tx-{nid}"], lambda nid: [f"tx2-{nid}"]],
+        adversary=TamperingAdversary(tamper_p=0.5), num_faulty=1)
+    tamper_s = time.perf_counter() - t0
+    launches_b = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+    _check_batches(net, proposed, "honeybadger-4-tamper")
+    if net.correct_faults():
+        raise AssertionError(f"honeybadger-4-tamper: correct nodes faulted: {net.correct_faults()}")
+    accused = {f.node_id for nid in net.correct_ids for f in net.node(nid).faults}
+    if not accused <= set(net.faulty_ids):
+        raise AssertionError(f"honeybadger-4-tamper: faults name {accused}, faulty {net.faulty_ids}")
+    verdicts = rec.verdicts()
+    if all(verdicts):
+        raise AssertionError("honeybadger-4-tamper: no forged share was rejected on the card")
+    host_s = _host_check(suite, rec, None, "honeybadger-4-tamper")
+    sizes = rec.sizes()
+    n_faults = sum(len(net.node(nid).faults) for nid in net.correct_ids)
+    log(f"consensus (b) honeybadger-4-tamper: 4 nodes (1 tampering), BLS, two epochs committed "
+        f"alike; {n_faults} faults, all against node {sorted(accused)}; {tamper_s:.3f} s wall; "
+        f"{len(sizes)} flushes, {sum(sizes)} requests, largest {max(sizes)}; "
+        f"{verdicts.count(False)} verdicts False; every flush == BatchedBackend (host, "
+        f"{os.cpu_count()} processes, {host_s:.2f} s)  [{card}]")
+    log(f"consensus (b) {_stage_line(stats, rec.seconds)}  [{card}]")
+    log(f"consensus (b) launches: {json.dumps(launches_b, sort_keys=True)}")
+
+    # (c) The proposers' data plane from the protocol layer: batch_propose
+    # over 16 fresh Broadcast instances (n = 16), payloads the length of
+    # (a)'s encrypted contributions, against per-instance handle_input.
+    pks = net.node(0).netinfo.public_key_set  # any BLS key set gives the length
+    length = len(serde.dumps(pks.public_key().encrypt(
+        serde.dumps([f"tx-15-{i}" for i in range(16)]), random.Random(16))))
+    rng = random.Random(length)
+    values = [rng.randbytes(length) for _ in range(16)]
+
+    def instances():
+        bnet = (NetBuilder(16, seed=4).num_faulty(0)
+                .protocol(lambda ni, sink, r: pbc.Broadcast(ni, ni.our_id)).build())
+        return [bnet.node(i).protocol for i in bnet.correct_ids]
+
+    def wire(step):
+        return [(repr(tm.target), serde.dumps(tm.message)) for tm in step.messages]
+
+    pbc.batch_propose(instances(), values, device="cuda")  # warm-up
+    before = dict(build.LAUNCHES)
+    pbc.HOST_ROUTE.clear()
+    t0 = time.perf_counter()
+    steps = pbc.batch_propose(instances(), values, device="cuda")
+    propose_s = time.perf_counter() - t0
+    launches_c = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+    host_route = dict(pbc.HOST_ROUTE)
+    t0 = time.perf_counter()
+    want = [wire(bc.handle_input(v, None)) for bc, v in zip(instances(), values)]
+    host_propose_s = time.perf_counter() - t0
+    if [wire(s) for s in steps] != want:
+        raise AssertionError("batch_propose on cuda: messages != per-instance handle_input")
+    if host_route:
+        raise AssertionError(f"batch_propose at n = 16: {host_route} took the host route")
+    if launches_c.get(K.TREE_KERNEL, 0) != 1 or launches_c.get(K.KERNEL, 0):
+        raise AssertionError(f"batch_propose launches {launches_c}: expected one "
+                             f"{K.TREE_KERNEL} and no {K.KERNEL}")
+    log(f"consensus (c) batch_propose: 16 Broadcast instances (n = 16), {length}-byte values: "
+        f"proofs == per-instance handle_input; host route {sum(host_route.values())} instances; "
+        f"{propose_s * 1e3:.1f} ms on the card (warm) against {host_propose_s * 1e3:.1f} ms for "
+        f"16 handle_input calls on the host; launches {json.dumps(launches_c, sort_keys=True)}"
+        f"  [{card}]")
+    return dict(build.LAUNCHES)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1084,10 +1364,14 @@ def main() -> int:
     kernels.append(phase_field(card))
     kernels += phase_scan(card, firehose, mixed)
     kernels += phase_pair(card, firehose, mixed, bad)
-    launches = phase_dataplane(card)
-    launches.update(phase_flush(card, suite, firehose, mixed, bad))
+    # Each main path's launches, its counts set to 0 just before it; a
+    # kernel's "launches" is their sum.
+    paths = {"dataplane": phase_dataplane(card)}
+    paths["flush"] = phase_flush(card, suite, firehose, mixed, bad)
+    paths["consensus"] = phase_consensus(card)
     for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
+        k["launches_by_path"] = {p: launches.get(k["name"], 0) for p, launches in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -10,3 +10,18 @@ hand-written CUDA kernels in ``csrc/``.
 Every entry point takes ``device=`` and runs on ``cuda`` unless the
 caller asks for ``"cpu"`` (:func:`hbbft_tpu_torch.device.resolve`).
 """
+
+# The protocol substrate, re-exported as the reference's package root does.
+# Importing it here first also gives the import order the reference relies
+# on: ``crypto.pool`` imports ``protocols.traits``, and loading the
+# protocols package imports ``crypto.pool`` (from ``binary_agreement``), so
+# the protocols package must load first or the import is circular.
+from hbbft_tpu_torch.protocols.traits import (  # noqa: F401,E402
+    ConsensusProtocol,
+    SourcedMessage,
+    Step,
+    Target,
+    TargetedMessage,
+)
+from hbbft_tpu_torch.protocols.network_info import NetworkInfo  # noqa: F401,E402
+from hbbft_tpu_torch.protocols.fault_log import Fault, FaultLog  # noqa: F401,E402

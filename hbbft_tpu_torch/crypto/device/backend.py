@@ -168,6 +168,12 @@ class TorchBackend(CryptoBackend):
     ) -> None:
         if chunk < 1:
             raise ValueError(f"chunk must be positive, got {chunk}")
+        if suite is not None and not isinstance(suite, BLSSuite):
+            raise TypeError(
+                f"TorchBackend verifies BLS12-381 shares only; got the suite "
+                f"{getattr(suite, 'name', type(suite).__name__)!r} (use BLSSuite, "
+                f"or BatchedBackend for any suite)"
+            )
         self.device = resolve(device)
         self.suite = suite or BLSSuite()
         self.chunk = chunk

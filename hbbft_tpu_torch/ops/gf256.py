@@ -13,8 +13,9 @@ Implementation: numpy log/exp-table arithmetic.  The device path
 (:mod:`hbbft_tpu_torch.ops.device.gf256`) expresses the same encode/decode
 as GF(2) bit-matrix products.
 
-Copy of the GF(256) half of ``hbbft_tpu/ops/gf256.py`` without its native
-C++ fast path; the GF(2^16) codec is not part of this package yet.
+Copy of ``hbbft_tpu/ops/gf256.py`` without its native C++ fast paths,
+GF(2^16) codec for validator sets over 255 included (host only, as in
+the reference).
 """
 
 from __future__ import annotations
@@ -153,3 +154,155 @@ class ReedSolomon:
         ).reshape(self.k, size)
         data = gf_matmul(dec, have)
         return [bytes(r) for r in data]
+
+
+# ---------------------------------------------------------------------------
+# GF(2^16): the large-validator-set codec
+# ---------------------------------------------------------------------------
+#
+# GF(256) runs out of distinct Vandermonde evaluation points at 255
+# shards; validator sets beyond that erasure-code over GF(2^16)
+# (poly 0x1100B, generator 2 — verified primitive; 65535 points).
+# Symbols are 2 bytes, big-endian on the wire ('>u2'), so shard lengths
+# must be even (`ReedSolomon16.shard_align`).
+
+_POLY16 = 0x1100B
+
+
+@lru_cache(maxsize=1)
+def _tables16():
+    exp = np.zeros(131070, dtype=np.uint16)
+    log = np.zeros(65536, dtype=np.int64)
+    x = 1
+    for i in range(65535):
+        exp[i] = x
+        log[x] = i
+        x <<= 1
+        if x & 0x10000:
+            x ^= _POLY16
+    exp[65535:131070] = exp[:65535]
+    return exp, log
+
+
+def gf16_mul(a: int, b: int) -> int:
+    if a == 0 or b == 0:
+        return 0
+    exp, log = _tables16()
+    return int(exp[log[a] + log[b]])
+
+
+def gf16_inv(a: int) -> int:
+    if a == 0:
+        raise ZeroDivisionError("GF(2^16) inverse of 0")
+    exp, log = _tables16()
+    return int(exp[65535 - log[a]])
+
+
+def gf16_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Matrix product over GF(2^16); uint16 arrays (m,k) @ (k,n) -> (m,n)."""
+    assert a.shape[1] == b.shape[0]
+    exp, log = _tables16()
+    out = np.zeros((a.shape[0], b.shape[1]), dtype=np.uint16)
+    for i in range(a.shape[1]):
+        col = a[:, i]
+        row = b[i, :]
+        nz = (col[:, None].astype(np.int64) != 0) & (row[None, :].astype(np.int64) != 0)
+        prod = exp[(log[col][:, None] + log[row][None, :])]
+        out ^= np.where(nz, prod, 0).astype(np.uint16)
+    return out
+
+
+def _row_scale16(row: np.ndarray, s: int) -> np.ndarray:
+    if s == 0:
+        return np.zeros_like(row)
+    exp, log = _tables16()
+    nz = row != 0
+    out = np.zeros_like(row)
+    out[nz] = exp[log[row[nz]] + log[s]]
+    return out
+
+
+def gf16_mat_inv(m: np.ndarray) -> np.ndarray:
+    """Gauss-Jordan inverse over GF(2^16)."""
+    n = m.shape[0]
+    assert m.shape == (n, n)
+    a = m.astype(np.uint16).copy()
+    inv = np.eye(n, dtype=np.uint16)
+    for col in range(n):
+        pivot = None
+        for r in range(col, n):
+            if a[r, col] != 0:
+                pivot = r
+                break
+        if pivot is None:
+            raise ValueError("singular matrix over GF(2^16)")
+        if pivot != col:
+            a[[col, pivot]] = a[[pivot, col]]
+            inv[[col, pivot]] = inv[[pivot, col]]
+        pinv = gf16_inv(int(a[col, col]))
+        a[col] = _row_scale16(a[col], pinv)
+        inv[col] = _row_scale16(inv[col], pinv)
+        for r in range(n):
+            if r != col and a[r, col] != 0:
+                factor = int(a[r, col])
+                a[r] ^= _row_scale16(a[col], factor)
+                inv[r] ^= _row_scale16(inv[col], factor)
+    return inv
+
+
+@lru_cache(maxsize=64)
+def encoding_matrix16(k: int, n: int) -> "np.ndarray":
+    """Systematic n x k encoding matrix over GF(2^16) (n <= 65535)."""
+    assert 0 < k <= n <= 65535
+    exp, _ = _tables16()
+    i = np.arange(n, dtype=np.int64)[:, None]
+    j = np.arange(k, dtype=np.int64)[None, :]
+    vand = exp[(i * j) % 65535].astype(np.uint16)
+    top_inv = gf16_mat_inv(vand[:k])
+    return gf16_matmul(vand, top_inv)
+
+
+class ReedSolomon16:
+    """Systematic RS(k-of-n) over GF(2^16); shard bytes must be even."""
+
+    shard_align = 2
+
+    def __init__(self, k: int, n: int) -> None:
+        assert 0 < k <= n <= 65535
+        self.k = k
+        self.n = n
+        self.matrix = encoding_matrix16(k, n)
+
+    @staticmethod
+    def _sym(shard_bytes: bytes) -> np.ndarray:
+        assert len(shard_bytes) % 2 == 0, "GF(2^16) shards must be even-length"
+        return np.frombuffer(shard_bytes, dtype=">u2").astype(np.uint16)
+
+    @staticmethod
+    def _bytes(sym_row: np.ndarray) -> bytes:
+        return sym_row.astype(">u2").tobytes()
+
+    def encode(self, data_shards: Sequence[bytes]) -> List[bytes]:
+        assert len(data_shards) == self.k
+        size = len(data_shards[0])
+        assert all(len(s) == size for s in data_shards)
+        data = np.stack([self._sym(s) for s in data_shards])
+        parity = gf16_matmul(self.matrix[self.k:], data)
+        return [bytes(s) for s in data_shards] + [self._bytes(p) for p in parity]
+
+    def reconstruct(self, shards: Dict[int, bytes]) -> List[bytes]:
+        if len(shards) < self.k:
+            raise ValueError(f"need {self.k} shards, got {len(shards)}")
+        idxs = sorted(shards)[: self.k]
+        sub = self.matrix[idxs]
+        dec = gf16_mat_inv(sub)
+        have = np.stack([self._sym(shards[i]) for i in idxs])
+        data = gf16_matmul(dec, have)
+        return [self._bytes(r) for r in data]
+
+
+def rs_codec(k: int, n: int):
+    """The RBC erasure codec for an n-validator network: GF(256) keeps
+    the reference-matching byte layout up to 255 shards; larger sets
+    use GF(2^16)."""
+    return ReedSolomon(k, n) if n <= 255 else ReedSolomon16(k, n)

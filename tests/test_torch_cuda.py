@@ -246,3 +246,38 @@ def test_torch_backend_on_card_matches_batched(cuda):
     assert got == BatchedBackend(suite).verify_batch(reqs)
     assert got.count(False) == 2
     assert all(build.LAUNCHES[k] > 0 for k in dpair.KERNELS + dscan.KERNELS)
+
+
+def test_honey_badger_epoch_on_card_matches_host_backend(cuda):
+    """A 4-node BLS HoneyBadger epoch whose every share check runs on the
+    card (``TorchBackend``) commits the same batches, after the same
+    deliveries and faults, as the same run on the host ``BatchedBackend``."""
+    from hbbft_tpu_torch.net import NetBuilder
+    from hbbft_tpu_torch.protocols.honey_badger import EncryptionSchedule, HoneyBadger
+
+    def run(factory):
+        net = (
+            NetBuilder(4, seed=6)
+            .suite(BLSSuite())
+            .backend(factory)
+            .flush_every(100_000)
+            .protocol(lambda ni, sink, rng: HoneyBadger(
+                ni, sink, session_id=b"hb-card",
+                encryption_schedule=EncryptionSchedule.always()))
+            .build()
+        )
+        for nid in net.correct_ids:
+            net.send_input(nid, [f"tx-{nid}-{i}" for i in range(4)])
+        net.crank_until(lambda n: all(n.node(i).outputs for i in n.correct_ids))
+        return net
+
+    build.reset_launches()
+    card = run(lambda s: TorchBackend(s))
+    assert all(build.LAUNCHES[k] > 0 for k in dpair.KERNELS + dscan.KERNELS)
+    host = run(BatchedBackend)
+    for nid in card.correct_ids:
+        assert card.node(nid).outputs == host.node(nid).outputs
+        assert sorted((f.node_id, f.kind) for f in card.node(nid).faults) == sorted(
+            (f.node_id, f.kind) for f in host.node(nid).faults)
+    assert card.delivered == host.delivered
+    assert card.correct_faults() == []

@@ -6,6 +6,7 @@ process's own imports do not leak in.  Every check is exact."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -26,9 +27,14 @@ def _port_modules():
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
+    """``code`` in a fresh interpreter with no card, at nice 10 (as
+    ``torch_low_priority`` runs CPU-bound port tests) where ``nice``
+    exists, so timing-sensitive tests beside it keep their cores."""
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    nice = shutil.which("nice")
+    prefix = [nice, "-n", "10"] if nice else []
     return subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env,
+        prefix + [sys.executable, "-c", code], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
 
@@ -114,3 +120,62 @@ def test_entry_points_refuse_without_a_card():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert "REFUSED 4" in res.stdout, res.stdout
+
+
+def test_consensus_plane_modules_are_checked_above():
+    """The consensus plane's modules are among those the fresh interpreter
+    above imports, so none of them loads ``jax`` or the JAX package."""
+    mods = set(_port_modules())
+    want = {
+        "hbbft_tpu_torch.utils", "hbbft_tpu_torch.utils.serde",
+        "hbbft_tpu_torch.utils.metrics", "hbbft_tpu_torch.obs",
+        "hbbft_tpu_torch.obs.trace", "hbbft_tpu_torch.crypto.pool",
+        "hbbft_tpu_torch.wire", "hbbft_tpu_torch.net",
+        "hbbft_tpu_torch.net.adversary", "hbbft_tpu_torch.net.virtual_net",
+        "hbbft_tpu_torch.protocols",
+    } | {
+        f"hbbft_tpu_torch.protocols.{m}"
+        for m in ("errors", "fault_log", "traits", "network_info", "bool_set",
+                  "threshold_sign", "threshold_decrypt", "broadcast", "sbv_broadcast",
+                  "binary_agreement", "subset", "honey_badger")
+    }
+    assert want <= mods, sorted(want - mods)
+
+
+def test_consensus_entry_points_refuse_without_a_card():
+    """``batch_propose`` without ``device=`` and a ``NetBuilder`` built on
+    ``TorchBackend`` with no device raise with no card; ``TorchBackend``
+    refuses a suite that is not BLS."""
+    code = (
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from hbbft_tpu_torch.crypto.bls.suite import BLSSuite\n"
+        "from hbbft_tpu_torch.crypto.suite import ScalarSuite\n"
+        "from hbbft_tpu_torch.crypto.device.backend import TorchBackend\n"
+        "from hbbft_tpu_torch.net import NetBuilder\n"
+        "from hbbft_tpu_torch.protocols.broadcast import Broadcast, batch_propose\n"
+        "from hbbft_tpu_torch.protocols.threshold_sign import ThresholdSign\n"
+        "def builder():\n"
+        "    return NetBuilder(1, seed=1).suite(BLSSuite()).protocol(\n"
+        "        lambda ni, sink, rng: ThresholdSign(ni, b'doc', sink))\n"
+        "bcs = [NetBuilder(4).protocol(lambda ni, sink, rng: Broadcast(ni, 0)).build()\n"
+        "       .node(0).protocol for _ in range(2)]\n"
+        "calls = [lambda: batch_propose(bcs, [b'x', b'y']),\n"
+        "         lambda: builder().backend(lambda s: TorchBackend(s)).build()]\n"
+        "n = 0\n"
+        "for c in calls:\n"
+        "    try:\n"
+        "        c()\n"
+        "    except RuntimeError:\n"
+        "        n += 1\n"
+        "try:\n"
+        "    TorchBackend(ScalarSuite(), device='cpu')\n"
+        "except TypeError:\n"
+        "    n += 1\n"
+        "builder().backend(lambda s: TorchBackend(s, device='cpu')).build()\n"
+        "batch_propose(bcs, [b'x', b'y'], device='cpu')\n"
+        "print('REFUSED', n)\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "REFUSED 3" in res.stdout, res.stdout
