@@ -45,7 +45,18 @@ Phases (any failure raises and the script exits nonzero):
    tampering validator whose doubled shares the card must reject, every
    flush held against the host; (c) ``batch_propose`` over 16 Broadcast
    instances on the card (K1's tree kernel, K5), its proofs equal to
-   per-instance ``handle_input``.
+   per-instance ``handle_input``;
+5. the dynamic stack: (a) a BLS era change at N = 4 (config 4's phases:
+   a plain epoch of QueueingHoneyBadger, node 3 voted out through
+   SyncKeyGen run inside consensus, one epoch of the new era), every share
+   check on the card, batches and the new key set alike on every correct
+   node, its first 4 flushes and its first new-era flush held against the
+   host ``BatchedBackend``, with the backend's stages, the device's busy
+   share and the host seconds of the checks that do not go through the
+   ``VerifySink`` (SyncKeyGen, DynamicHoneyBadger's signatures); (b) the
+   port's simulation example at the reference's defaults (10 nodes, 128
+   transactions) over BLS with ``--backend torch``, every node committing
+   every transaction.
 
 The last three lines are one JSON object with every kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.  With no CUDA card, or
@@ -1164,15 +1175,15 @@ def _host_verdicts(args) -> list:
     return BatchedBackend(suite).verify_batch(reqs)
 
 
-def _host_check(suite, log_, first: int | None, what: str) -> float:
+def _host_check(suite, log_, first: int | None, what: str, also: tuple = ()) -> float:
     """Hold the card's verdicts of the first ``first`` flushes (all when
-    None) against the host ``BatchedBackend`` on the same requests, one
-    flush per worker process (host pairings take ~1 s a flush), and
-    return the wall time that took."""
+    None), and of the flushes at the indices ``also``, against the host
+    ``BatchedBackend`` on the same requests, one flush per worker process
+    (host pairings take ~1 s a flush), and return the wall time that took."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    flushes = log_.flushes[:first]
+    flushes = log_.flushes[:first] + [log_.flushes[i] for i in also]
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=min(len(flushes), os.cpu_count() or 1),
                              mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -1334,6 +1345,248 @@ def phase_consensus(card: str) -> dict:
     return dict(build.LAUNCHES)
 
 
+class HostTimers:
+    """Time, from outside, the host work of the dynamic stack that does not
+    go through the ``VerifySink``: ``SyncKeyGen``'s ``handle_part``,
+    ``handle_ack`` and ``generate``; the ciphertext checks inside
+    ``SecretKey.decrypt`` (each a hash to G2 and a pairing check, counted
+    where the ciphertext's validity memo was still empty); the signature
+    checks of DynamicHoneyBadger's votes and key-gen messages (its
+    ``_memo_sig_verdict`` misses); and ``SecretKey.sign``, which signs them.
+    The library's methods are wrapped while the timers are on and put back
+    by :meth:`close`."""
+
+    def __init__(self) -> None:
+        from hbbft_tpu_torch.crypto import keys
+        from hbbft_tpu_torch.protocols import dynamic_honey_badger as dhb
+        from hbbft_tpu_torch.protocols.sync_key_gen import SyncKeyGen
+
+        self.stats: dict = {}
+        self._saved: list = []
+        for name in ("handle_part", "handle_ack", "generate"):
+            self._wrap(SyncKeyGen, name, self._timed(getattr(SyncKeyGen, name), f"skg.{name}"))
+        self._wrap(keys.SecretKey, "sign", self._timed(keys.SecretKey.sign, "SecretKey.sign"))
+        decrypt = keys.SecretKey.decrypt
+        ct_check = self._timed(lambda ct: ct.verify(), "decrypt.ct_check")
+
+        def timed_decrypt(sk, ct):
+            if isinstance(ct, keys.Ciphertext) and "_verify_ok" not in ct.__dict__:
+                ct_check(ct)  # the check decrypt would make; its verdict is memoized
+            return decrypt(sk, ct)
+
+        self._wrap(keys.SecretKey, "decrypt", self._timed(timed_decrypt, "SecretKey.decrypt"))
+        memo = dhb._memo_sig_verdict
+
+        def timed_memo(obj, pk, check):
+            return memo(obj, pk, self._timed(check, "dhb.sig_check"))
+
+        self._wrap(dhb, "_memo_sig_verdict", timed_memo)
+
+    def _timed(self, fn, key: str):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                entry = self.stats.setdefault(key, [0, 0.0])
+                entry[0] += 1
+                entry[1] += time.perf_counter() - t0
+        return run
+
+    def _wrap(self, owner, name: str, fn) -> None:
+        self._saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, fn)
+
+    def close(self) -> None:
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved = []
+
+    def line(self) -> str:
+        return "; ".join(f"{k} {n} calls {t:.3f} s" for k, (n, t) in sorted(self.stats.items()))
+
+
+def _dhb_batches(net, nid) -> list:
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import DhbBatch
+
+    return [o for o in net.node(nid).outputs if isinstance(o, DhbBatch)]
+
+
+def _committed(net, nid) -> list:
+    return [t for b in _dhb_batches(net, nid) for _, c in b.contributions for t in c]
+
+
+def _dynamic_era(card: str, flush_kernels: tuple) -> None:
+    """(a) qhb-era-4: a BLS era change on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+    from hbbft_tpu_torch.net import NetBuilder
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import Change
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input, QueueingHoneyBadger
+
+    suite = BLSSuite()
+    be = TorchBackend(suite)
+    stats = instrument(be)
+    rec = FlushLog(be)
+    timers = HostTimers()
+    net = (NetBuilder(4, seed=4).num_faulty(0).suite(suite).backend(lambda s: rec)
+           .flush_every(100_000).max_cranks(10_000_000)
+           .protocol(lambda ni, sink, rng: QueueingHoneyBadger(
+               ni, sink, batch_size=4, session_id=b"cfg4"))
+           .build())
+    ids = list(net.correct_ids)
+    old_pks = net.node(0).netinfo.public_key_set.to_bytes()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_all = time.perf_counter()
+            # Phase 1: a plain epoch, one user transaction a node.
+            t0, d0 = time.perf_counter(), net.delivered
+            for nid in ids:
+                net.send_input(nid, Input.user(f"pre-{nid}"))
+            net.crank_until(lambda n: all(_dhb_batches(n, i) for i in ids))
+            plain_s, plain_d = time.perf_counter() - t0, net.delivered - d0
+            epochs_before = max(len(_dhb_batches(net, i)) for i in ids)
+            plain_flushes = len(rec.flushes)
+            # Phase 2: vote node 3 out; the era change runs SyncKeyGen among
+            # nodes 0-2 through consensus.
+            ni = net.node(0).protocol.netinfo
+            new_map = {i: ni.public_key(i) for i in ni.all_ids if i != 3}
+            t0, d0 = time.perf_counter(), net.delivered
+            for nid in ids:
+                net.send_input(nid, Input.change(Change.node_change(new_map)))
+                net.send_input(nid, Input.user(f"churn-{nid}"))
+            net.crank_until(lambda n: all(
+                any(b.change.kind == "complete" for b in _dhb_batches(n, i)) for i in ids))
+            era_s, era_d = time.perf_counter() - t0, net.delivered - d0
+            epochs_era = max(len(_dhb_batches(net, i)) for i in ids) - epochs_before
+            era_flushes = len(rec.flushes) - plain_flushes
+            # Phase 3: one epoch of the new era, a transaction from each
+            # remaining validator.
+            t0, d0 = time.perf_counter(), net.delivered
+            new_txns = [f"era1-{nid}" for nid in (0, 1, 2)]
+            for nid in (0, 1, 2):
+                net.send_input(nid, Input.user(f"era1-{nid}"))
+            net.crank_until(lambda n: all(set(new_txns) <= set(_committed(n, i))
+                                          for i in (0, 1, 2)))
+            new_s, new_d = time.perf_counter() - t0, net.delivered - d0
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t_all
+    finally:
+        timers.close()
+    launches = dict(build.LAUNCHES)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    share = f"{100 * busy_us / (total_s * 1e6):.2f}%" if busy_us > 0 else "not measured"
+
+    # Checks.
+    common = min(len(_dhb_batches(net, i)) for i in ids)
+    if any(_dhb_batches(net, i)[:common] != _dhb_batches(net, 0)[:common] for i in ids):
+        raise AssertionError("qhb-era-4: the correct nodes' batches differ")
+    new_pks = {net.node(i).protocol.netinfo.public_key_set.to_bytes() for i in ids}
+    if len(new_pks) != 1 or old_pks in new_pks:
+        raise AssertionError(f"qhb-era-4: {len(new_pks)} new PublicKeySets, old kept: "
+                             f"{old_pks in new_pks}")
+    if net.node(3).protocol.netinfo.is_validator():
+        raise AssertionError("qhb-era-4: node 3 is still a validator")
+    if any(not net.node(i).protocol.netinfo.is_validator() for i in (0, 1, 2)):
+        raise AssertionError("qhb-era-4: a remaining node is not a validator")
+    if net.correct_faults():
+        raise AssertionError(f"qhb-era-4: faults {net.correct_faults()[:5]}")
+    verdicts = rec.verdicts()
+    if not all(verdicts):
+        raise AssertionError(f"qhb-era-4: {verdicts.count(False)} of {len(verdicts)} verdicts False")
+    missing = [k for k in flush_kernels if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"qhb-era-4 launched no {missing}: {launches}")
+    # The first flush whose shares carry the PublicKeySet SyncKeyGen made.
+    pks = net.node(0).protocol.netinfo.public_key_set
+    shares = {pks.public_key_share(i).to_bytes() for i in range(3)}
+    first_new = next((i for i, (reqs, _) in enumerate(rec.flushes)
+                      if any(r.kind != "ciphertext" and r.payload[0].to_bytes() in shares
+                             for r in reqs)), None)
+    if first_new is None:
+        raise AssertionError("qhb-era-4: no flush checked a share of the new key set")
+    held = 4
+    host_s = _host_check(suite, rec, held, "qhb-era-4", also=(first_new,))
+    sizes = rec.sizes()
+    log(f"dynamic (a) qhb-era-4: benchmarks/config4_dynamic_hb.py's phases at N = 4 (not 64: "
+        f"BLS DKG is host Python growing ~N^3, N = 32 took 13,199 s natively, "
+        f"BLS_ERA32_r05.json), BLS, QueueingHoneyBadger batch 4, every share check on the "
+        f"card: plain epoch {plain_s:.3f} s, {plain_d} deliveries, {plain_flushes} flushes; "
+        f"era change (node 3 voted out) {era_s:.3f} s, {epochs_era} epochs, {era_d} "
+        f"deliveries, {era_flushes} flushes; new-era epoch {new_s:.3f} s, {new_d} deliveries; "
+        f"all {len(ids)} correct nodes' batches alike, one new PublicKeySet, node 3 an "
+        f"observer, no fault  [{card}]")
+    log(f"dynamic (a) {len(sizes)} flushes, {sum(sizes)} requests, largest {max(sizes)}, "
+        f"median {statistics.median(sizes)}; all verdicts True; first {held} flushes and "
+        f"flush {first_new} (the first with a share of the new key set) == BatchedBackend "
+        f"(host, {os.cpu_count()} processes, {host_s:.2f} s)  [{card}]")
+    log(f"dynamic (a) {_stage_line(stats, rec.seconds)}; device busy {busy_us:.0f} us of "
+        f"{total_s * 1e6:.0f} us = {share}  [{card}]")
+    log(f"dynamic (a) host work off the VerifySink over {total_s:.3f} s: {timers.line()}  "
+        f"[{card}]")
+    log(f"dynamic (a) launches: {json.dumps(launches, sort_keys=True)}")
+
+
+def _dynamic_simulation(card: str, flush_kernels: tuple) -> None:
+    """(b) simulation-10: the port's simulation example on the card at the
+    reference's defaults with the BLS suite and ``--backend torch``."""
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.examples import simulation as sim
+
+    before = dict(build.LAUNCHES)
+    args = sim.parse_args(["--suite", "bls", "--backend", "torch", "--seed", "0",
+                           "--flush-every", "1"])
+    net = sim.build_network(args)
+    stats = instrument(net.backend)
+    net.backend = rec = FlushLog(net.backend)
+    txns, wall = sim.run(net, args)
+    sim.report(net, args, wall)
+    launches = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                if v - before.get(k, 0)}
+    missing = [n.id for n in net.nodes.values() if not set(txns) <= set(n.committed)]
+    if missing:
+        raise AssertionError(f"simulation-10: nodes {missing} did not commit every transaction")
+    if len(txns) != 128 or len(net.nodes) != 10:
+        raise AssertionError("simulation-10: not the reference's defaults")
+    verdicts = rec.verdicts()
+    if not all(verdicts):
+        raise AssertionError(f"simulation-10: {verdicts.count(False)} verdicts False")
+    missing = [k for k in flush_kernels if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"simulation-10 launched no {missing}: {launches}")
+    sizes = rec.sizes()
+    msgs = sum(n.sent_msgs for n in net.nodes.values())
+    mbytes = sum(n.sent_bytes for n in net.nodes.values()) / 1e6
+    log(f"dynamic (b) simulation-10: python3 -m hbbft_tpu_torch.examples.simulation --suite bls "
+        f"--backend torch (10 nodes, 128 txns of 16 bytes, batch 128, 100 ms, 2,000 kbps, "
+        f"seed 0, flush every delivery): every node committed all {len(txns)}; {msgs} msgs, "
+        f"{mbytes:.2f} MB on the wire; {len(sizes)} flushes, {sum(sizes)} requests, largest "
+        f"{max(sizes)}; all verdicts True; wall {wall:.3f} s  [{card}]")
+    log(f"dynamic (b) {_stage_line(stats, rec.seconds)}  [{card}]")
+    log(f"dynamic (b) launches: {json.dumps(launches, sort_keys=True)}")
+
+
+def phase_dynamic(card: str) -> dict:
+    """The dynamic stack on the card: a BLS era change (a) and the
+    simulation example (b).  Returns the kernels' launches over both, the
+    counts set to 0 just before."""
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+
+    flush_kernels = (*dscan.KERNELS, *dpair.KERNELS)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    _dynamic_era(card, flush_kernels)
+    t1 = time.perf_counter()
+    _dynamic_simulation(card, flush_kernels)
+    log(f"dynamic: (a) {t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s  [{card}]")
+    return dict(build.LAUNCHES)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1369,6 +1622,7 @@ def main() -> int:
     paths = {"dataplane": phase_dataplane(card)}
     paths["flush"] = phase_flush(card, suite, firehose, mixed, bad)
     paths["consensus"] = phase_consensus(card)
+    paths["dynamic"] = phase_dynamic(card)
     for k in kernels:
         k["launches_by_path"] = {p: launches.get(k["name"], 0) for p, launches in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -2,7 +2,11 @@
 
 The JAX package :mod:`hbbft_tpu` stays the reference; this package sits
 beside it and imports none of it (nor ``jax``).  Host modules the port
-needs are kept here as copies under the same relative paths; the device
+needs are kept here as copies under the same relative paths: the whole
+protocol stack, from ``Broadcast`` and ``BinaryAgreement`` through
+``HoneyBadger``, ``SyncKeyGen``, ``DynamicHoneyBadger`` and
+``QueueingHoneyBadger`` to ``SenderQueue``, with the reference's wire
+tags and its simulation example (``examples/simulation.py``).  The device
 modules live under ``crypto/device`` (the BLS share-verification flush)
 and ``ops/device`` (the reliable-broadcast data plane), with the
 hand-written CUDA kernels in ``csrc/``.

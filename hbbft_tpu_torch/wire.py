@@ -14,10 +14,13 @@ Registered types (everything reachable from a committed contribution):
 * crypto:   ``Ciphertext``, ``Signature``, ``PublicKey``,
             ``Commitment``, ``BivarCommitment``
 * honey_badger:  ``EncryptionSchedule``
+* dynamic_honey_badger:  ``Change``, ``SignedVote``, ``SignedKeyGenMsg``,
+            ``InternalContrib``, ``JoinPlan``
+* sync_key_gen:  ``Part``, ``Ack``
 
 Transport-boundary types (everything reachable from a live wire
-message of the HoneyBadger stack, so a whole protocol message can ride
-in one frame):
+message of the SenderQueue(QueueingHoneyBadger) stack, so a whole
+protocol message can ride in one frame):
 
 * crypto shares:  ``SignatureShare``, ``DecryptionShare``
 * merkle:   ``Proof``
@@ -26,16 +29,15 @@ in one frame):
 * agreement:  ``BoolSet``, ``BValMsg``, ``AuxMsg``, ``ConfMsg``,
             ``CoinMsg``, ``TermMsg``, ``AbaMessage``
 * threshold:  ``SignMessage``, ``DecryptMessage``
-* envelopes:  ``SubsetMessage``, ``HbMessage``
+* envelopes:  ``SubsetMessage``, ``HbMessage``, ``DhbMessage``,
+            ``SqMessage``
 
 Crypto-plane RPC: ``VerifyRequest``.
 
-Copy of ``hbbft_tpu/wire.py`` for the modules this package has, under the
-reference's tags, so ``serde.dumps`` gives the reference's bytes.  The
-types of DynamicHoneyBadger, SyncKeyGen and SenderQueue (``change``,
-``svote``, ``skg``, ``icontrib``, ``joinplan``, ``part``, ``ack``,
-``dhbmsg``, ``sqmsg``) are not registered yet, and the native scan's
-token-level ``ct`` builder is left out with that scan.
+Copy of ``hbbft_tpu/wire.py`` under the reference's tags, so
+``serde.dumps`` gives the reference's bytes: all 35 of its struct tags are
+registered here.  The reference's token-level ``ct`` builder, which serves
+only its native token scan, is left out with that scan.
 
 These unpackers are *stricter* than the in-process handlers: a frame
 whose payload could only have been authored by a broken or malicious
@@ -97,9 +99,19 @@ from hbbft_tpu_torch.protocols.broadcast import (
     ReadyMsg,
     ValueMsg,
 )
+from hbbft_tpu_torch.protocols.dynamic_honey_badger import (
+    Change,
+    DhbMessage,
+    InternalContrib,
+    JoinPlan,
+    SignedKeyGenMsg,
+    SignedVote,
+)
 from hbbft_tpu_torch.protocols.honey_badger import DECRYPT, SUBSET, EncryptionSchedule, HbMessage
 from hbbft_tpu_torch.protocols.sbv_broadcast import AuxMsg, BValMsg
+from hbbft_tpu_torch.protocols.sender_queue import SqMessage
 from hbbft_tpu_torch.protocols.subset import BA, BC, SubsetMessage
+from hbbft_tpu_torch.protocols.sync_key_gen import Ack, Part
 from hbbft_tpu_torch.protocols.threshold_decrypt import DecryptMessage
 from hbbft_tpu_torch.protocols.threshold_sign import SignMessage
 from hbbft_tpu_torch.utils.serde import (
@@ -303,6 +315,150 @@ def _unpack_schedule(f: tuple) -> EncryptionSchedule:
     _need(kind in _SCHEDULE_KINDS, "EncryptionSchedule: bad kind")
     _need(type(n) is int and n >= 1, "EncryptionSchedule: bad n")
     return EncryptionSchedule(kind, n)
+
+
+# -- dynamic honey badger ---------------------------------------------------
+
+_CHANGE_KINDS = ("node_change", "encryption_schedule")
+
+
+def _pack_change(c: Change) -> tuple:
+    return (c.kind, c.new_validators, c.schedule)
+
+
+def _unpack_change(f: tuple) -> Change:
+    # Cross-field invariants match the Change.node_change /
+    # Change.encryption_schedule constructors: a decoded Change must be
+    # one an honest node could have built (a schedule change always
+    # carries a schedule; a node change carries >= 1 validator and no
+    # schedule) — otherwise adopting a committed winner could crash
+    # honest nodes (None.encrypt_on) or derive threshold -1.
+    kind, validators, schedule = _fields(f, 3, "Change")
+    _need(kind in _CHANGE_KINDS, "Change: bad kind")
+    _need(type(validators) is tuple, "Change: bad validators")
+    for pair in validators:
+        _need(
+            type(pair) is tuple and len(pair) == 2, "Change: bad validator pair"
+        )
+        _node_id(pair[0], "Change validator id")
+        _need(isinstance(pair[1], PublicKey), "Change: validator key")
+    if kind == "encryption_schedule":
+        _need(isinstance(schedule, EncryptionSchedule), "Change: missing schedule")
+        _need(len(validators) == 0, "Change: schedule change with validators")
+    else:
+        _need(schedule is None, "Change: node change with schedule")
+        _need(len(validators) >= 1, "Change: empty validator set")
+    return Change(kind, validators, schedule)
+
+
+def _pack_signed_vote(v: SignedVote) -> tuple:
+    return (v.voter, v.era, v.num, v.change, v.signature)
+
+
+def _unpack_signed_vote(f: tuple) -> SignedVote:
+    voter, era, num, change, sig = _fields(f, 5, "SignedVote")
+    _node_id(voter, "SignedVote.voter")
+    _need(isinstance(change, Change), "SignedVote: bad change")
+    _need(isinstance(sig, Signature), "SignedVote: bad signature")
+    return SignedVote(
+        voter, _int(era, "SignedVote.era"), _int(num, "SignedVote.num"), change, sig
+    )
+
+
+def _pack_signed_kg(m: SignedKeyGenMsg) -> tuple:
+    return (m.era, m.sender, m.payload, m.signature)
+
+
+def _unpack_signed_kg(f: tuple) -> SignedKeyGenMsg:
+    era, sender, payload, sig = _fields(f, 4, "SignedKeyGenMsg")
+    _node_id(sender, "SignedKeyGenMsg.sender")
+    _need(isinstance(payload, (Part, Ack)), "SignedKeyGenMsg: bad payload")
+    _need(isinstance(sig, Signature), "SignedKeyGenMsg: bad signature")
+    return SignedKeyGenMsg(_int(era, "SignedKeyGenMsg.era"), sender, payload, sig)
+
+
+def _pack_internal_contrib(c: InternalContrib) -> tuple:
+    return (c.contribution, c.key_gen_messages, c.votes)
+
+
+def _unpack_internal_contrib(f: tuple) -> InternalContrib:
+    contribution, kg, votes = _fields(f, 3, "InternalContrib")
+    _need(type(kg) is tuple, "InternalContrib: bad key_gen_messages")
+    _need(
+        all(isinstance(m, SignedKeyGenMsg) for m in kg),
+        "InternalContrib: bad key_gen message",
+    )
+    _need(type(votes) is tuple, "InternalContrib: bad votes")
+    _need(
+        all(isinstance(v, SignedVote) for v in votes), "InternalContrib: bad vote"
+    )
+    return InternalContrib(contribution, kg, votes)
+
+
+def _pack_join_plan(p: JoinPlan) -> tuple:
+    return (
+        p.era,
+        p.public_key_set.suite.name,
+        p.public_key_set.commitment,
+        p.validators,
+        p.encryption_schedule,
+    )
+
+
+def _unpack_join_plan(f: tuple) -> JoinPlan:
+    from hbbft_tpu_torch.crypto.keys import PublicKeySet
+
+    era, suite_name, commitment, validators, schedule = _fields(f, 5, "JoinPlan")
+    suite = _suite(suite_name)
+    _need(isinstance(commitment, Commitment), "JoinPlan: bad commitment")
+    _need(
+        all(suite.is_g1(e, check_subgroup=False) for e in commitment.elems),
+        "JoinPlan: commitment elements not in suite G1",
+    )
+    _need(
+        type(validators) is tuple and len(validators) >= 1,
+        "JoinPlan: empty validator set",  # (0-1)//3 thresholds go negative
+    )
+    for pair in validators:
+        _need(type(pair) is tuple and len(pair) == 2, "JoinPlan: bad pair")
+        _node_id(pair[0], "JoinPlan validator id")
+        _need(isinstance(pair[1], PublicKey), "JoinPlan: validator key")
+    _need(isinstance(schedule, EncryptionSchedule), "JoinPlan: bad schedule")
+    return JoinPlan(
+        _nonneg(era, "JoinPlan.era"),
+        PublicKeySet(commitment, suite),
+        validators,
+        schedule,
+    )
+
+
+# -- sync key gen -----------------------------------------------------------
+
+
+def _pack_part(p: Part) -> tuple:
+    return (p.commitment, p.rows)
+
+
+def _unpack_part(f: tuple) -> Part:
+    commitment, rows = _fields(f, 2, "Part")
+    _need(isinstance(commitment, BivarCommitment), "Part: bad commitment")
+    _need(type(rows) is tuple, "Part: bad rows")
+    _need(all(isinstance(c, Ciphertext) for c in rows), "Part: bad row ciphertext")
+    return Part(commitment, rows)
+
+
+def _pack_ack(a: Ack) -> tuple:
+    return (a.proposer, a.values)
+
+
+def _unpack_ack(f: tuple) -> Ack:
+    proposer, values = _fields(f, 2, "Ack")
+    _node_id(proposer, "Ack.proposer")
+    _need(type(values) is tuple, "Ack: bad values")
+    _need(
+        all(isinstance(c, Ciphertext) for c in values), "Ack: bad value ciphertext"
+    )
+    return Ack(proposer, values)
 
 
 # -- transport-boundary types (live wire messages) --------------------------
@@ -522,6 +678,40 @@ def _unpack_hb_msg(f: tuple) -> HbMessage:
     return HbMessage(epoch, kind, proposer, inner)
 
 
+def _pack_dhb_msg(m: DhbMessage) -> tuple:
+    return (m.era, m.inner)
+
+
+def _unpack_dhb_msg(f: tuple) -> DhbMessage:
+    era, inner = _fields(f, 2, "DhbMessage")
+    _need(isinstance(inner, HbMessage), "DhbMessage: bad inner")
+    return DhbMessage(_nonneg(era, "DhbMessage.era"), inner)
+
+
+def _pack_sq_msg(m: SqMessage) -> tuple:
+    return (m.kind, m.value)
+
+
+def _unpack_sq_msg(f: tuple) -> SqMessage:
+    kind, value = _fields(f, 2, "SqMessage")
+    if kind == "epoch_started":
+        _need(
+            type(value) is tuple
+            and len(value) == 2
+            and all(type(x) is int and x >= 0 for x in value),
+            "SqMessage: bad epoch",
+        )
+    elif kind == "algo":
+        # Both the dynamic (DhbMessage) and static (HbMessage) stacks
+        # ride through SenderQueue.
+        _need(isinstance(value, (DhbMessage, HbMessage)), "SqMessage: bad algo")
+    elif kind == "join_plan":
+        _need(isinstance(value, JoinPlan), "SqMessage: bad plan")
+    else:
+        raise DecodeError("SqMessage: bad kind")
+    return SqMessage(kind, value)
+
+
 # -- registration -----------------------------------------------------------
 
 register_struct("ct", Ciphertext, _pack_ciphertext, _unpack_ciphertext)
@@ -532,6 +722,15 @@ register_struct(
     "bicomm", BivarCommitment, _pack_bivar_commitment, _unpack_bivar_commitment
 )
 register_struct("encsched", EncryptionSchedule, _pack_schedule, _unpack_schedule)
+register_struct("change", Change, _pack_change, _unpack_change)
+register_struct("svote", SignedVote, _pack_signed_vote, _unpack_signed_vote)
+register_struct("skg", SignedKeyGenMsg, _pack_signed_kg, _unpack_signed_kg)
+register_struct(
+    "icontrib", InternalContrib, _pack_internal_contrib, _unpack_internal_contrib
+)
+register_struct("joinplan", JoinPlan, _pack_join_plan, _unpack_join_plan)
+register_struct("part", Part, _pack_part, _unpack_part)
+register_struct("ack", Ack, _pack_ack, _unpack_ack)
 # Crypto-plane RPC payloads (the service process boundary).
 register_struct("vreq", VerifyRequest, _pack_verify_request, _unpack_verify_request)
 
@@ -557,3 +756,5 @@ register_struct("signmsg", SignMessage, _pack_sign_msg, _unpack_sign_msg)
 register_struct("decmsg", DecryptMessage, _pack_decrypt_msg, _unpack_decrypt_msg)
 register_struct("subsetmsg", SubsetMessage, _pack_subset_msg, _unpack_subset_msg)
 register_struct("hbmsg", HbMessage, _pack_hb_msg, _unpack_hb_msg)
+register_struct("dhbmsg", DhbMessage, _pack_dhb_msg, _unpack_dhb_msg)
+register_struct("sqmsg", SqMessage, _pack_sq_msg, _unpack_sq_msg)

@@ -281,3 +281,44 @@ def test_honey_badger_epoch_on_card_matches_host_backend(cuda):
             (f.node_id, f.kind) for f in host.node(nid).faults)
     assert card.delivered == host.delivered
     assert card.correct_faults() == []
+
+
+def test_queueing_honey_badger_epoch_on_card_matches_host_backend(cuda):
+    """A 4-node BLS QueueingHoneyBadger epoch (the dynamic stack's era
+    layer over HoneyBadger) whose every share check runs on the card
+    commits the same batches, after the same deliveries and faults, as
+    the same run on the host ``BatchedBackend``."""
+    from hbbft_tpu_torch.net import NetBuilder
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import DhbBatch
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input, QueueingHoneyBadger
+
+    def run(factory):
+        net = (
+            NetBuilder(4, seed=4).num_faulty(0)
+            .suite(BLSSuite())
+            .backend(factory)
+            .flush_every(100_000)
+            .protocol(lambda ni, sink, rng: QueueingHoneyBadger(
+                ni, sink, batch_size=4, session_id=b"cfg4"))
+            .build()
+        )
+        for nid in net.correct_ids:
+            net.send_input(nid, Input.user(f"pre-{nid}"))
+        net.crank_until(lambda n: all(
+            any(isinstance(o, DhbBatch) for o in n.node(i).outputs) for i in n.correct_ids))
+        return net
+
+    def plain(net, nid):
+        return [(b.era, b.epoch, b.contributions, b.change.kind)
+                for b in net.node(nid).outputs if isinstance(b, DhbBatch)]
+
+    build.reset_launches()
+    card = run(lambda s: TorchBackend(s))
+    assert all(build.LAUNCHES[k] > 0 for k in dpair.KERNELS + dscan.KERNELS)
+    host = run(BatchedBackend)
+    for nid in card.correct_ids:
+        assert plain(card, nid) == plain(host, nid) and plain(card, nid)
+        assert sorted((f.node_id, f.kind) for f in card.node(nid).faults) == sorted(
+            (f.node_id, f.kind) for f in host.node(nid).faults)
+    assert card.delivered == host.delivered
+    assert card.correct_faults() == []

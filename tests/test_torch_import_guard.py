@@ -10,6 +10,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "hbbft_tpu_torch")
 
@@ -132,12 +134,15 @@ def test_consensus_plane_modules_are_checked_above():
         "hbbft_tpu_torch.obs.trace", "hbbft_tpu_torch.crypto.pool",
         "hbbft_tpu_torch.wire", "hbbft_tpu_torch.net",
         "hbbft_tpu_torch.net.adversary", "hbbft_tpu_torch.net.virtual_net",
-        "hbbft_tpu_torch.protocols",
+        "hbbft_tpu_torch.protocols", "hbbft_tpu_torch.utils.sizeof",
+        "hbbft_tpu_torch.examples", "hbbft_tpu_torch.examples.simulation",
     } | {
         f"hbbft_tpu_torch.protocols.{m}"
         for m in ("errors", "fault_log", "traits", "network_info", "bool_set",
                   "threshold_sign", "threshold_decrypt", "broadcast", "sbv_broadcast",
-                  "binary_agreement", "subset", "honey_badger")
+                  "binary_agreement", "subset", "honey_badger", "transaction_queue",
+                  "sync_key_gen", "dynamic_honey_badger", "queueing_honey_badger",
+                  "sender_queue")
     }
     assert want <= mods, sorted(want - mods)
 
@@ -179,3 +184,21 @@ def test_consensus_entry_points_refuse_without_a_card():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert "REFUSED 3" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("mod", [
+    "hbbft_tpu_torch.protocols.sender_queue", "hbbft_tpu_torch.protocols.sync_key_gen",
+    "hbbft_tpu_torch.protocols.dynamic_honey_badger",
+    "hbbft_tpu_torch.protocols.queueing_honey_badger", "hbbft_tpu_torch.wire",
+    "hbbft_tpu_torch.examples.simulation",
+])
+def test_dynamic_stack_module_imports_first(mod):
+    """Each module of the dynamic stack is importable as the first import
+    of a fresh interpreter (no circular import), and its serde registry
+    then holds every tag."""
+    res = _run(f"import {mod}\n"
+               "from hbbft_tpu_torch.utils import serde\n"
+               "serde.dumps(None)\n"
+               "print('TAGS', len(serde._STRUCTS))\n")
+    assert res.returncode == 0, res.stderr
+    assert "TAGS 35" in res.stdout, res.stdout
