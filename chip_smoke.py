@@ -56,7 +56,26 @@ Phases (any failure raises and the script exits nonzero):
    ``VerifySink`` (SyncKeyGen, DynamicHoneyBadger's signatures); (b) the
    port's simulation example at the reference's defaults (10 nodes, 128
    transactions) over BLS with ``--backend torch``, every node committing
-   every transaction.
+   every transaction;
+6. the crypto plane: (a) a live cluster of 16 BLS validators over
+   localhost TCP (``LocalCluster``) whose every node's share checks one
+   shared ``CryptoPlaneService`` merges into ``TorchBackend`` flushes on
+   the card, until every node has committed all 16 transactions: the
+   nodes' streams alike, no handler error, no fault, no fallback to a
+   node's host backend, the scan and pair kernels launched on every
+   service flush, the first 4 service flushes held against the host
+   ``BatchedBackend``, with the flushes, requests per flush, the
+   service's wait against the backend's time, the backend's stages and
+   the device's busy share; (b) the same service in a process of its own
+   (``ServiceProcess(backend="torch")``) serving a 4-node BLS cluster until
+   every node has 2 batches, its log line naming the card, the worker
+   exiting 0 with no flush error, with the worker's own launches; (c)
+   ``HybridBackend`` sending a 63-request flush to the host and a
+   64-request flush to the card, a raising device propagating, and the
+   sharded flush (``TorchBackend(devices=["cuda:0", "cuda:0"])``, K7's
+   counterpart) on the firehose, the firehose with a bad share in a chunk
+   scanned on ``devices[1]``, and mixed-512, with the unsharded verdicts
+   and launches.
 
 The last three lines are one JSON object with every kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.  With no CUDA card, or
@@ -74,6 +93,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1032,7 +1052,7 @@ def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
     """The flush end to end on the card; returns the kernels' launches
     over one warm firehose flush (the counts set to 0 just before it)."""
     from hbbft_tpu_torch import build
-    from hbbft_tpu_torch.crypto.backend import BatchedBackend, EagerBackend
+    from hbbft_tpu_torch.crypto.backend import EagerBackend
     from hbbft_tpu_torch.crypto.device import fq
     from hbbft_tpu_torch.crypto.device import pair as dpair
     from hbbft_tpu_torch.crypto.device import scan as dscan
@@ -1108,7 +1128,7 @@ def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
     got = be.verify_batch(mixed)
     dev_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    want = BatchedBackend(suite).verify_batch(mixed)
+    want = _host_verdicts_split(suite, mixed)
     host_s = time.perf_counter() - t0
     if got != want:
         raise AssertionError("mixed batch: TorchBackend != BatchedBackend")
@@ -1120,7 +1140,8 @@ def phase_flush(card: str, suite, reqs: list, mixed: list, bad: list) -> dict:
         raise AssertionError("mixed batch: TorchBackend != EagerBackend on the sample")
     log(f"flush mixed {len(mixed)} requests (sig/dec/ciphertext, 2 bad + 1 forged non-subgroup): "
         f"verdicts == BatchedBackend and EagerBackend sample; rejected {bad}; "
-        f"TorchBackend {dev_s:.3f} s, BatchedBackend (host) {host_s:.2f} s  [{card}]")
+        f"TorchBackend {dev_s:.3f} s, BatchedBackend (host, {os.cpu_count()} processes) "
+        f"{host_s:.2f} s  [{card}]")
     return launches
 
 
@@ -1168,11 +1189,25 @@ def _check_batches(net, proposed, what: str) -> None:
 
 def _host_verdicts(args) -> list:
     """One flush's verdicts from the host ``BatchedBackend`` (a worker of
-    :func:`_host_check`'s process pool)."""
+    the process pools of :func:`_host_check` and :func:`_host_verdicts_split`)."""
     from hbbft_tpu_torch.crypto.backend import BatchedBackend
 
     suite, reqs = args
     return BatchedBackend(suite).verify_batch(reqs)
+
+
+def _host_verdicts_split(suite, reqs: list) -> list:
+    """The host ``BatchedBackend``'s verdicts on ``reqs``, one contiguous
+    part a worker process: a verdict is a function of its request alone,
+    so the parts' verdicts, joined, are the whole batch's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    step = -(-len(reqs) // (os.cpu_count() or 1))
+    parts = [(suite, reqs[s:s + step]) for s in range(0, len(reqs), step)]
+    with ProcessPoolExecutor(max_workers=len(parts),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        return [v for part in pool.map(_host_verdicts, parts) for v in part]
 
 
 def _host_check(suite, log_, first: int | None, what: str, also: tuple = ()) -> float:
@@ -1587,6 +1622,304 @@ def phase_dynamic(card: str) -> dict:
     return dict(build.LAUNCHES)
 
 
+def _cluster_txns(cluster, nid) -> set:
+    return {t for b in cluster.batches(nid) for _, c in b.contributions for t in (c or [])}
+
+
+def _cluster_streams_alike(cluster, ids, what: str) -> int:
+    """Every node's committed stream is a prefix of one stream; returns the
+    shortest stream's length."""
+    streams = [[(b.era, b.epoch, b.contributions) for b in cluster.batches(i)] for i in ids]
+    common = min(len(s) for s in streams)
+    if common == 0 or any(s[:common] != streams[0][:common] for s in streams):
+        raise AssertionError(f"{what}: the nodes' committed streams differ")
+    return common
+
+
+def _cluster_clean(m, what: str) -> None:
+    bad = {k: m.counters.get(k, 0) for k in ("cluster.handler_errors", "cluster.bad_payload",
+                                             "cluster.protocol_faults", "crypto.fallbacks",
+                                             "crypto.rpc.fallbacks", "crypto.flush_errors")}
+    if any(bad.values()):
+        raise AssertionError(f"{what}: {bad}")
+
+
+def _launch_delta(before: dict) -> dict:
+    from hbbft_tpu_torch import build
+
+    return {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items() if v - before.get(k, 0)}
+
+
+def _plane_service(card: str, flush_kernels: tuple) -> None:
+    """(a) cryptoplane-16: 16 BLS validators over TCP, one shared service
+    over ``TorchBackend``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto import keys
+    from hbbft_tpu_torch.crypto.backend import VerifyRequest
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+    from hbbft_tpu_torch.cryptoplane import CryptoPlaneService
+    from hbbft_tpu_torch.obs.trace import TraceBuffer
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input
+    from hbbft_tpu_torch.transport import LocalCluster
+
+    n = 16
+    suite = BLSSuite()
+    be = TorchBackend(suite)
+    # Warm: the kernels loaded and one flush run before any node waits on
+    # the service (a first flush that loads them must not outlast a
+    # client's timeout).
+    t0 = time.perf_counter()
+    be.load_kernels()
+    sks = keys.SecretKeySet.random(1, random.Random(3), suite)
+    pks = sks.public_keys()
+    warm = [VerifyRequest.sig_share(pks.public_key_share(i), b"warm",
+                                    sks.secret_key_share(i).sign(b"warm")) for i in range(4)]
+    if not all(be.verify_batch(warm)):
+        raise AssertionError("cryptoplane-16: the warm-up flush rejected a valid share")
+    warm_s = time.perf_counter() - t0
+    stats = instrument(be)
+    rec = FlushLog(types.SimpleNamespace(verify_batch=be.verify_batch))
+    be.verify_batch = rec.verify_batch  # the service still holds TorchBackend
+    service = CryptoPlaneService(be, window_s=0.002, trace=TraceBuffer("cryptoplane"))
+    cluster = LocalCluster(n, seed=0, node_impl="python", suite=suite, crypto="service",
+                           crypto_service=service)
+    txns = [f"tx-{i}" for i in range(n)]
+    for i in range(n):
+        cluster.submit(i, Input.user(txns[i]))
+    before = dict(build.LAUNCHES)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cluster.start()
+            done = cluster.wait(lambda cl: all(set(txns) <= _cluster_txns(cl, i)
+                                               for i in range(n)), 300.0, poll_s=0.05)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        m = cluster.merged_metrics(fresh=True)
+    finally:
+        cluster.stop()
+        service.stop()
+    launches = _launch_delta(before)
+    if not done:
+        raise AssertionError(f"cryptoplane-16: not every node committed all {n} transactions "
+                             f"within 300 s: {[len(_cluster_txns(cluster, i)) for i in range(n)]}")
+    batches = _cluster_streams_alike(cluster, range(n), "cryptoplane-16")
+    _cluster_clean(m, "cryptoplane-16")
+    flushes, reqs = m.counters.get("crypto.flushes", 0), m.counters.get("crypto.requests", 0)
+    if flushes == 0 or flushes != len(rec.flushes):
+        raise AssertionError(f"cryptoplane-16: {flushes} service flushes, {len(rec.flushes)} logged")
+    short = [k for k in flush_kernels if launches.get(k, 0) < flushes]
+    if short:
+        raise AssertionError(f"cryptoplane-16: {short} launched fewer times than the {flushes} "
+                             f"service flushes: {launches}")
+    verdicts = rec.verdicts()
+    if not all(verdicts):
+        raise AssertionError(f"cryptoplane-16: {verdicts.count(False)} verdicts False")
+    held = 4
+    host_s = _host_check(suite, rec, held, "cryptoplane-16")
+    wait = m.timers["crypto.wait"]
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    share = f"{100 * busy_us / (wall * 1e6):.2f}%" if busy_us > 0 else "not measured"
+    sizes = rec.sizes()
+    log(f"crypto plane (a) cryptoplane-16: LocalCluster(16, seed=0, python nodes, BLS, "
+        f"crypto=service) over localhost TCP, one Input.user a node: every node committed all "
+        f"{n} in {batches} batch(es), streams alike, no handler error, fault or fallback; wall "
+        f"{wall:.3f} s (warm-up {warm_s:.2f} s before it)  [{card}]")
+    log(f"crypto plane (a) {wait.count} node pool flushes (jobs) -> {flushes} service flushes, "
+        f"{reqs} requests, {reqs / flushes:.2f} requests and {wait.count / flushes:.2f} jobs a "
+        f"service flush, largest {max(sizes)}, median {statistics.median(sizes)}; first {held} "
+        f"service flushes == BatchedBackend (host, {host_s:.2f} s)  [{card}]")
+    log(f"crypto plane (a) service wait (window 2 ms + queue) {wait.total_s:.3f} s over "
+        f"{wait.count} jobs = {1e3 * wait.total_s / wait.count:.2f} ms a job (max "
+        f"{1e3 * wait.max_s:.2f} ms); backend {rec.seconds:.3f} s over {flushes} flushes = "
+        f"{1e3 * rec.seconds / flushes:.2f} ms a flush  [{card}]")
+    log(f"crypto plane (a) {_stage_line(stats, rec.seconds)}; device busy {busy_us:.0f} us of "
+        f"{wall * 1e6:.0f} us = {share}  [{card}]")
+    log(f"crypto plane (a) launches: {json.dumps(launches, sort_keys=True)}")
+
+
+def _plane_process(card: str, flush_kernels: tuple) -> dict:
+    """(b) cryptoplane-proc-4: the service in a process of its own on the
+    card, serving a 4-node BLS cluster.  Returns the worker's launches."""
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input
+    from hbbft_tpu_torch.transport import LocalCluster
+
+    n = 4
+    t0 = time.perf_counter()
+    cluster = LocalCluster(n, seed=0, node_impl="python", suite=BLSSuite(),
+                           crypto="service-proc",
+                           service_kwargs=dict(backend="torch", device="cuda",
+                                               ready_timeout_s=180.0))
+    start_s = time.perf_counter() - t0
+    svc = cluster.crypto_service
+    try:
+        for i in range(n):
+            cluster.submit(i, Input.user(f"tx-{i}"))
+        t0 = time.perf_counter()
+        cluster.start()
+        done = cluster.wait(lambda cl: all(cl.batch_count(i) >= 2 for i in range(n)), 240.0,
+                            poll_s=0.05)
+        wall = time.perf_counter() - t0
+        m = cluster.merged_metrics(fresh=True)
+        stats = svc.stats()["counters"]
+    finally:
+        cluster.stop()  # stops the owned worker; its summary carries its launches
+    if not done:
+        raise AssertionError(f"cryptoplane-proc-4: not every node had 2 batches within 240 s: "
+                             f"{[cluster.batch_count(i) for i in range(n)]}")
+    line = svc.log[0] if svc.log else ""
+    if "cuda" not in line:
+        raise AssertionError(f"cryptoplane-proc-4: the worker's log line names no cuda device: "
+                             f"{svc.log}")
+    _cluster_streams_alike(cluster, range(n), "cryptoplane-proc-4")
+    _cluster_clean(m, "cryptoplane-proc-4")
+    calls = m.counters.get("crypto.rpc.calls", 0)
+    if calls == 0 or stats.get("crypto.flushes", 0) == 0:
+        raise AssertionError(f"cryptoplane-proc-4: {calls} RPC flushes, service {stats}")
+    summary = svc.summary or {}
+    if summary.get("flush_errors", 1) != 0 or svc.proc.returncode != 0:
+        raise AssertionError(f"cryptoplane-proc-4: the worker exited {svc.proc.returncode}, "
+                             f"its summary {svc.summary}, its log {svc.log}")
+    launches = summary.get("launches", {})
+    missing = [k for k in flush_kernels if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"cryptoplane-proc-4: the worker launched no {missing}: {svc.summary}")
+    rt = m.timers.get("crypto.rpc.round_trip")
+    log(f"crypto plane (b) cryptoplane-proc-4: LocalCluster(4, seed=0, python nodes, BLS, "
+        f"crypto=service-proc, backend=torch): worker up in {start_s:.2f} s, its log line: "
+        f"{line!r}; every node has 2 batches, streams alike, no fallback; the worker exited 0 "
+        f"with no flush error; wall {wall:.3f} s  [{card}]")
+    log(f"crypto plane (b) {calls} RPC flushes from the nodes ({m.counters.get('crypto.rpc.requests', 0)} "
+        f"requests; round trip {rt.total_s:.3f} s in all, max {1e3 * rt.max_s:.1f} ms) -> "
+        f"{stats['crypto.flushes']} service flushes, {stats['crypto.requests']} requests "
+        f"= {stats['crypto.requests'] / stats['crypto.flushes']:.2f} a flush; worker launches "
+        f"{json.dumps(launches, sort_keys=True)}  [{card}]")
+    return launches
+
+
+class _RaisingDevice:
+    """A device backend whose flush fails."""
+
+    calls = 0
+
+    def verify_batch(self, reqs):
+        self.calls += 1
+        raise RuntimeError("device flush failed")
+
+
+def _plane_routing(card: str, flush_kernels: tuple, firehose: list, mixed: list,
+                   bad: list) -> None:
+    """(c) ``HybridBackend``'s size routing and the sharded flush (K7)."""
+    from hbbft_tpu_torch.crypto.backend import BatchedBackend, VerifyRequest
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.device.backend import HybridBackend, TorchBackend
+
+    suite = BLSSuite()
+    hb = HybridBackend(suite)  # device None: TorchBackend on cuda
+    if not isinstance(hb.device, TorchBackend) or hb.device.device.type != "cuda":
+        raise AssertionError(f"HybridBackend: device {hb.device!r} is not TorchBackend on cuda")
+    out = {}
+    for size in (63, 64):
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        got = hb.verify_batch(firehose[:size])
+        out[size] = (time.perf_counter() - t0, _launch_delta(before))
+        if not all(got):
+            raise AssertionError(f"HybridBackend: a valid share rejected at {size}")
+    if out[63][1]:
+        raise AssertionError(f"HybridBackend: a 63-request flush launched {out[63][1]}")
+    if any(out[64][1].get(k, 0) == 0 for k in flush_kernels):
+        raise AssertionError(f"HybridBackend: a 64-request flush launched only {out[64][1]}")
+    host = BatchedBackend(suite)
+    host_calls = []
+    orig = host.verify_batch
+    host.verify_batch = lambda reqs: host_calls.append(len(reqs)) or orig(reqs)
+    raising = HybridBackend(suite, device=_RaisingDevice(), host=host)
+    try:
+        raising.verify_batch(firehose[:64])
+        raise AssertionError("HybridBackend: a raising device flush did not raise")
+    except RuntimeError as exc:
+        if "device flush failed" not in str(exc):
+            raise
+    if host_calls or raising.device.calls != 1:
+        raise AssertionError(f"HybridBackend failed over: host calls {host_calls}")
+    log(f"crypto plane (c) HybridBackend(min_device_batch=64): 63 requests -> host "
+        f"BatchedBackend {out[63][0]:.3f} s, 0 launches; 64 -> TorchBackend on the card "
+        f"{out[64][0]:.3f} s, launches {json.dumps(out[64][1], sort_keys=True)}; a raising "
+        f"device flush raised, no host call  [{card}]")
+    # Every card, or the one card listed twice.
+    devices = [f"cuda:{k}" for k in range(torch.cuda.device_count())]
+    devices = devices * 2 if len(devices) == 1 else devices
+    plain, sharded = TorchBackend(suite), TorchBackend(suite, devices=devices)
+    sharded.load_kernels()
+    # A bad share in the firehose's fourth chunk, which the sharded flush
+    # scans on devices[3 % len]: that chunk's failure path (its recheck
+    # gathered on devices[0], then its bisection) runs.  mixed-512 is one
+    # chunk.
+    at = 3 * plain.chunk + 100
+    a, b = firehose[at], firehose[at + 1]  # two signers
+    firehose_bad = list(firehose)
+    firehose_bad[at] = VerifyRequest.sig_share(a.payload[0], a.payload[1], b.payload[2])
+    for name, reqs, want_rejected in (("firehose-10240", firehose, []),
+                                      (f"firehose-10240 with a bad share at {at}", firehose_bad,
+                                       [at]),
+                                      ("mixed-512", mixed, bad)):
+        runs = {}
+        for label, be in (("unsharded", plain), ("sharded", sharded), ("sharded", sharded),
+                          ("unsharded", plain)):
+            before = dict(build.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = be.verify_batch(reqs)
+            torch.cuda.synchronize()
+            runs.setdefault(label, []).append((time.perf_counter() - t0, got,
+                                               _launch_delta(before)))
+        want = runs["unsharded"][0][1]
+        if any(r[1] != want for rs in runs.values() for r in rs):
+            raise AssertionError(f"K7 {name}: sharded verdicts != unsharded")
+        rejected = [i for i, v in enumerate(want) if not v]
+        if rejected != want_rejected:
+            raise AssertionError(f"K7 {name}: rejected {rejected}")
+        counts = [r[2] for rs in runs.values() for r in rs]
+        if any(c != counts[0] for c in counts):
+            raise AssertionError(f"K7 {name}: launches differ: {counts}")
+        log(f"crypto plane (c) K7 TorchBackend(devices={devices}) on {name}: "
+            f"verdicts == unsharded, rejected {rejected}; launches == unsharded "
+            f"{json.dumps(counts[0], sort_keys=True)}; seconds unsharded/sharded/sharded/"
+            f"unsharded {runs['unsharded'][0][0]:.3f} / {runs['sharded'][0][0]:.3f} / "
+            f"{runs['sharded'][1][0]:.3f} / {runs['unsharded'][1][0]:.3f}  [{card}]")
+
+
+def phase_cryptoplane(card: str, firehose: list, mixed: list, bad: list) -> dict:
+    """The crypto plane on the card: the shared service over TCP (a), the
+    service process (b), ``HybridBackend`` and the sharded flush (c).
+    Returns the kernels' launches over (a)-(c), the counts set to 0 just
+    before, the service worker's own launches added."""
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+
+    flush_kernels = (*dscan.KERNELS, *dpair.KERNELS)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    _plane_service(card, flush_kernels)
+    t1 = time.perf_counter()
+    worker = _plane_process(card, flush_kernels)
+    t2 = time.perf_counter()
+    _plane_routing(card, flush_kernels, firehose, mixed, bad)
+    log(f"crypto plane: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{time.perf_counter() - t2:.1f} s  [{card}]")
+    launches = dict(build.LAUNCHES)
+    for k, v in worker.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1623,6 +1956,7 @@ def main() -> int:
     paths["flush"] = phase_flush(card, suite, firehose, mixed, bad)
     paths["consensus"] = phase_consensus(card)
     paths["dynamic"] = phase_dynamic(card)
+    paths["cryptoplane"] = phase_cryptoplane(card, firehose, mixed, bad)
     for k in kernels:
         k["launches_by_path"] = {p: launches.get(k["name"], 0) for p, launches in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

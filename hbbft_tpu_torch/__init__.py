@@ -6,7 +6,9 @@ needs are kept here as copies under the same relative paths: the whole
 protocol stack, from ``Broadcast`` and ``BinaryAgreement`` through
 ``HoneyBadger``, ``SyncKeyGen``, ``DynamicHoneyBadger`` and
 ``QueueingHoneyBadger`` to ``SenderQueue``, with the reference's wire
-tags and its simulation example (``examples/simulation.py``).  The device
+tags and its simulation example (``examples/simulation.py``), and the
+crypto plane: a TCP cluster runtime (``transport/``) whose nodes' share
+checks one shared service (``cryptoplane/``) merges into flushes.  The device
 modules live under ``crypto/device`` (the BLS share-verification flush)
 and ``ops/device`` (the reliable-broadcast data plane), with the
 hand-written CUDA kernels in ``csrc/``.

@@ -14,7 +14,9 @@ path went through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -86,14 +88,35 @@ def _nvcc_cmd(name: str, out: Path, extra: List[str]) -> List[str]:
     return [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory, held across processes
+    (a crypto-service worker and its parent may both load the kernels):
+    one process builds, the other then finds the libraries built."""
+    with open(BUILD_DIR / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, Path]:
     """Compile every named source that is not built yet, all ``nvcc``
     processes started together; returns name -> shared library path.
     ``verbose`` adds ``-Xptxas -v`` (a report only; the code is the
     same) and prints the compiler's output."""
-    extra = ["-Xptxas", "-v"] if verbose else []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
+    if all(p.exists() for p in paths.values()):
+        return paths
+    with _build_lock():
+        _compile(paths, ["-Xptxas", "-v"] if verbose else [], verbose)
+    return paths
+
+
+def _compile(paths: Dict[str, Path], extra: List[str], verbose: bool) -> None:
+    """``build_all``'s compile step, under the build lock."""
     procs = {}
     for n, p in paths.items():
         if p.exists():
@@ -117,7 +140,6 @@ def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, Path]:
         os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -64,6 +64,11 @@ class VerifyRequest:
 class CryptoBackend(abc.ABC):
     """Verifies a batch of requests, returning one bool per request."""
 
+    #: True for a backend whose flush runs the port's device path.  Such
+    #: a flush that raises is a fault to report: the crypto plane passes
+    #: it on to its callers and never re-verifies on the host.
+    on_device: bool = False
+
     @abc.abstractmethod
     def verify_batch(self, reqs: Sequence[VerifyRequest]) -> List[bool]: ...
 
@@ -253,6 +258,19 @@ def _rlc_pairs(
     pairs.extend((acc, h) for acc, h in by_hash_g2.values())
     pairs.extend((acc, w) for acc, w in by_w_leg.values())
     return pairs
+
+
+def default_backend(suite: Suite) -> CryptoBackend:
+    """The backend an entry point builds when its caller names none: the
+    card's ``TorchBackend`` for BLS (on ``cuda``, which raises with no
+    card), :class:`BatchedBackend` for a suite with no device path."""
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+
+    if isinstance(suite, BLSSuite):
+        from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+
+        return TorchBackend(suite)
+    return BatchedBackend(suite)
 
 
 class BatchedBackend(CryptoBackend):

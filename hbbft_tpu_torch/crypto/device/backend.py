@@ -22,6 +22,13 @@ On a CUDA device the scan stage is the hand-written K2 kernels
 (:mod:`.scan`, ``csrc/scan.cu``) and the pair stage the K3 kernels
 (:mod:`.pair`, ``csrc/pair.cu``); on the CPU both stages are the plain
 versions here (:func:`scan_stage`, :func:`pair_stage_plain`).
+
+``TorchBackend(devices=[...])`` is the counterpart of the reference's
+sharded flush (``TpuBackend(shard=True)`` over ``_shard_mesh``, K7): the
+scan stage's chunks go to the listed devices in turn and their pairs
+are gathered on the first for one pair stage.  :class:`HybridBackend`
+routes each flush by size between ``TorchBackend`` and the host
+``BatchedBackend``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from hbbft_tpu_torch.crypto.backend import (
     DEC_SHARE,
     SIG_SHARE,
+    BatchedBackend,
     CryptoBackend,
     EagerBackend,
     VerifyRequest,
@@ -158,26 +166,57 @@ class TorchBackend(CryptoBackend):
     ``device="cpu"`` to run the plain PyTorch path on the host.
     ``chunk`` bounds the rows of one scan stage (default 2048, the
     reference's TPU-tuned value, not yet tuned for this card).
+
+    ``devices`` (instead of ``device``) shards the flush: chunk k's scan
+    stage runs on ``devices[k % len(devices)]``, and every chunk's pairs
+    are gathered on ``devices[0]``, which runs the pair stage, the
+    per-chunk rechecks and the bisection.  A list may repeat a device.
+    The verdicts are the unsharded flush's: each chunk's scan is the same
+    function of the same requests wherever it runs.
     """
+
+    on_device = True
 
     def __init__(
         self,
         suite: BLSSuite | None = None,
         device: DeviceLike = None,
         chunk: int = DEFAULT_CHUNK,
+        devices: Sequence[DeviceLike] | None = None,
     ) -> None:
         if chunk < 1:
             raise ValueError(f"chunk must be positive, got {chunk}")
+        if devices is not None:
+            if device is not None:
+                raise ValueError("pass device or devices, not both")
+            if not devices:
+                raise ValueError("devices must name at least one device")
         if suite is not None and not isinstance(suite, BLSSuite):
             raise TypeError(
                 f"TorchBackend verifies BLS12-381 shares only; got the suite "
                 f"{getattr(suite, 'name', type(suite).__name__)!r} (use BLSSuite, "
                 f"or BatchedBackend for any suite)"
             )
-        self.device = resolve(device)
+        self.devices = [resolve(d) for d in devices] if devices is not None else [resolve(device)]
+        if len({d.type for d in self.devices}) != 1:
+            raise ValueError(f"devices mix types: {self.devices}")
+        self.device = self.devices[0]
         self.suite = suite or BLSSuite()
         self.chunk = chunk
         self._eager = EagerBackend(self.suite)
+
+    def load_kernels(self) -> None:
+        """Initialise every device and load the kernels the flush
+        launches (building them first if needed), so the first flush
+        pays neither; nothing to do on the CPU."""
+        if self.device.type != "cuda":
+            return
+        from hbbft_tpu_torch import build
+
+        for dev in self.devices:
+            torch.zeros(1, device=dev)
+        build.load("scan")
+        build.load("pair")
 
     # -- leg construction (host, cheap): mirrors backend._rlc_pairs ----
 
@@ -228,17 +267,18 @@ class TorchBackend(CryptoBackend):
                 g1_entries.append((c, (-ct.u).jac, l, 1))
         return g2_entries, g1_entries, rhs
 
-    def _scan_prep(self, subsets: Sequence[Sequence[VerifyRequest]], kernel: bool | None = None):
+    def _scan_prep(self, subsets: Sequence[Sequence[VerifyRequest]], kernel: bool | None = None,
+                   dev: torch.device | None = None):
         """Host prep for one scan over independent RLC subsets (one chunk,
         or the halves of one bisection level): returns the scan stage's
-        inputs on ``self.device`` and ``pair_sub``, the subset of each pair
-        the stage will emit.  The inputs are a :class:`.scan.ScanInputs`
+        inputs on ``dev`` (default ``self.device``) and ``pair_sub``, the
+        subset of each pair the stage will emit.  The inputs are a :class:`.scan.ScanInputs`
         for the K2 kernels when ``kernel`` (default: on a CUDA device),
         else the :func:`scan_stage` arguments.  Each subset gets its own
         Fiat-Shamir coefficients, exactly as if it were checked alone.
         A subset with no G1 (or G2) rows gets one identity row (scalar 0)
         so every stage sees a nonempty batch."""
-        dev = self.device
+        dev = self.device if dev is None else dev
         if kernel is None:
             kernel = dev.type == "cuda"
         ident1 = (1, 1, 0)
@@ -299,14 +339,17 @@ class TorchBackend(CryptoBackend):
         )
         return args, pair_sub
 
-    def _scan(self, subsets: Sequence[Sequence[VerifyRequest]]):
-        """One scan stage over ``subsets`` — the K2 kernels on a CUDA
-        device, the plain :func:`scan_stage` on the CPU; returns (sub_ok,
-        lhs, rhs, pair_sub) with the tensors on device and no host sync,
-        so chunks queue back to back."""
-        inputs, pair_sub = self._scan_prep(subsets)
-        if self.device.type == "cuda":
-            return (*dscan.scan_stage_kernel(inputs), pair_sub)
+    def _scan(self, subsets: Sequence[Sequence[VerifyRequest]], dev: torch.device | None = None):
+        """One scan stage over ``subsets`` on ``dev`` (default
+        ``self.device``) — the K2 kernels on a CUDA device, the plain
+        :func:`scan_stage` on the CPU; returns (sub_ok, lhs, rhs,
+        pair_sub) with the tensors on ``dev`` and no host sync, so chunks
+        queue back to back."""
+        dev = self.device if dev is None else dev
+        inputs, pair_sub = self._scan_prep(subsets, dev=dev)
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                return (*dscan.scan_stage_kernel(inputs), pair_sub)
         return (*scan_stage(*inputs), pair_sub)
 
     def _check_parts(self, parts) -> bool:
@@ -320,13 +363,15 @@ class TorchBackend(CryptoBackend):
         union with blockwise-committed coefficients — an adversary must
         still grind the hash for an exact mod-r cancellation across the
         union.  On any False the caller re-checks per chunk, so verdicts
-        are identical to the per-chunk path.
+        are identical to the per-chunk path.  Parts scanned on other
+        devices are gathered on ``self.device`` first.
         """
-        lhs = tuple(torch.cat([p[1][c] for p in parts]) for c in range(4))
-        rhs = tuple(torch.cat([p[2][c] for p in parts]) for c in range(4))
+        dev = self.device
+        lhs = tuple(torch.cat([p[1][c].to(dev) for p in parts]) for c in range(4))
+        rhs = tuple(torch.cat([p[2][c].to(dev) for p in parts]) for c in range(4))
         ok = pair_stage(lhs, rhs, [0] * lhs[3].shape[0], 1)
         for p in parts:
-            ok = ok & p[0]
+            ok = ok & p[0].to(dev)
         return bool(ok.all())
 
     def _aggregate_ok_many(self, subsets: Sequence[Sequence[VerifyRequest]]) -> List[bool]:
@@ -353,8 +398,13 @@ class TorchBackend(CryptoBackend):
         ]
         chunks = [idxs[s : s + self.chunk] for s in range(0, len(idxs), self.chunk)]
         # Queue every chunk's scan before reading any verdict: the card
-        # runs them back to back and the host syncs once.
-        scans = [self._scan([[reqs[i] for i in c]]) for c in chunks]
+        # runs them back to back and the host syncs once.  Sharded, chunk
+        # k scans on devices[k % len(devices)].
+        devs = self.devices
+        scans = [
+            self._scan([[reqs[i] for i in c]], devs[k % len(devs)])
+            for k, c in enumerate(chunks)
+        ]
         if len(chunks) > 1:
             # Fast path: ALL chunks' pairs through one batched Miller
             # loop + one final exponentiation.
@@ -409,3 +459,50 @@ class TorchBackend(CryptoBackend):
                         out[i] = True
                 else:
                     failing.append(half)
+
+
+class HybridBackend(CryptoBackend):
+    """Route each flush by size: ``min_device_batch`` requests or more to
+    the card's :class:`TorchBackend`, smaller ones to the host
+    :class:`~hbbft_tpu_torch.crypto.backend.BatchedBackend` (small flushes
+    are latency-bound either way).
+
+    Counterpart of ``hbbft_tpu/crypto/tpu/backend.py`` ``HybridBackend``
+    without its two failovers: ``device=None`` builds ``TorchBackend`` on
+    ``cuda``, which raises without a card (the reference probed for an
+    accelerator and went host-only when none answered), and a device
+    flush that raises propagates (the reference served that flush and
+    every later one from the host).  Host-only is the caller's explicit
+    choice: ``device=HybridBackend.NO_DEVICE``.
+
+    Verdict-identical to both constituents by construction: every
+    backend implements the same RLC/bisection semantics.
+    """
+
+    on_device = True
+
+    # Pass as ``device=`` for host-only mode (None means "the card").
+    NO_DEVICE: Any = object()
+
+    def __init__(
+        self,
+        suite: BLSSuite | None = None,
+        min_device_batch: int = 64,
+        device: CryptoBackend | None = None,
+        host: CryptoBackend | None = None,
+    ) -> None:
+        self.suite = suite or BLSSuite()
+        self.min_device_batch = min_device_batch
+        self.host = host or BatchedBackend(self.suite)
+        if device is HybridBackend.NO_DEVICE:
+            self.device: CryptoBackend | None = None
+        elif device is not None:
+            self.device = device
+        else:
+            self.device = TorchBackend(self.suite)
+
+    def verify_batch(self, reqs: Sequence[VerifyRequest]) -> List[bool]:
+        reqs = list(reqs)
+        if self.device is not None and len(reqs) >= self.min_device_batch:
+            return self.device.verify_batch(reqs)
+        return self.host.verify_batch(reqs)

@@ -5,10 +5,14 @@
   the Python protocol modules emit through (a no-op when no tracer is
   installed, so VirtualNet simulations and unit tests pay one attribute
   lookup per milestone).
+* :mod:`hbbft_tpu_torch.obs.export` — merges per-node rings on the shared
+  wall clock into Chrome trace-event JSON and per-epoch phase-latency
+  summaries.
+* :mod:`hbbft_tpu_torch.obs.analyze` — the consensus critical-path
+  analyzer and live stall diagnostician over the same rings.
 
-Copy of the part of ``hbbft_tpu/obs/`` that the protocols import; the
-exporters, the scrape server and the analyzer are not part of this
-package yet.
+Copy of ``hbbft_tpu/obs/`` without the scrape server (``server.py``,
+ROADMAP Queue 1).
 
 Re-exports resolve LAZILY (PEP 562), as in the reference: every protocol
 module does ``from hbbft_tpu_torch.obs import trace`` on import.
@@ -19,6 +23,16 @@ from typing import Any
 _EXPORTS = {
     "TraceBuffer": "hbbft_tpu_torch.obs.trace",
     "TraceEvent": "hbbft_tpu_torch.obs.trace",
+    "chrome_trace": "hbbft_tpu_torch.obs.export",
+    "phase_spans": "hbbft_tpu_torch.obs.export",
+    "phase_summaries": "hbbft_tpu_torch.obs.export",
+    "write_chrome_trace": "hbbft_tpu_torch.obs.export",
+    "critical_path": "hbbft_tpu_torch.obs.analyze",
+    "summarize_critical_paths": "hbbft_tpu_torch.obs.analyze",
+    "diagnose": "hbbft_tpu_torch.obs.analyze",
+    "merge_diags": "hbbft_tpu_torch.obs.analyze",
+    "derived_summaries": "hbbft_tpu_torch.obs.analyze",
+    "tracks_from_chrome": "hbbft_tpu_torch.obs.analyze",
 }
 
 __all__ = sorted(_EXPORTS)

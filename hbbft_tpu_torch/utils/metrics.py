@@ -20,8 +20,8 @@ Usage::
 ``Metrics.trace(path)`` wraps ``torch.profiler`` so a verify flush can be
 captured for TensorBoard without importing torch at module scope.
 
-Copy of ``hbbft_tpu/utils/metrics.py``; only ``trace`` differs (the
-reference captures with ``jax.profiler``).
+Copy of ``hbbft_tpu/utils/metrics.py``; ``trace`` differs (the
+reference captures with ``jax.profiler``), and ``observe`` is the port's.
 """
 
 from __future__ import annotations
@@ -120,9 +120,12 @@ class Metrics:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self.timers.setdefault(name, TimerStats()).add(dt)
+            self.observe(name, time.perf_counter() - t0)
+
+    def observe(self, name: str, seconds: float) -> None:
+        """Add one duration measured elsewhere to the timer ``name``."""
+        with self._lock:
+            self.timers.setdefault(name, TimerStats()).add(seconds)
 
     @contextmanager
     def trace(self, logdir: str) -> Iterator[None]:

@@ -1,0 +1,133 @@
+"""The port's TCP cluster (``hbbft_tpu_torch.transport.cluster``) against
+the reference's.
+
+At N = 4, seed 0, six presubmitted rounds of one transaction a node, the
+port's ``"inline"``, ``"service"`` and ``"service-proc"`` arms and the
+reference's python ``"inline"`` arm commit the same per-node stream of
+four batches.  Which proposals land in an epoch's subset depends on
+arrival times over live sockets, so a dissenting arm is re-run a bounded
+number of times, as ``tests/test_cryptoplane.py`` does: a wrong verdict
+diverges on every run and no rerun hides it.  The service arms route
+every share check through the shared service (flushes > 0) with no
+fallback.  What the port does not have yet raises, naming its
+``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import pytest
+
+from hbbft_tpu.utils import serde as ref_serde
+from hbbft_tpu_torch.transport import LocalCluster
+from hbbft_tpu_torch.utils import serde
+
+EPOCH_TIMEOUT_S = 45  # wall cap per driven phase; typical is < 3 s
+TARGET = 4
+
+
+def _run_arm(pkg: str, crypto: str, seed: int = 0, rounds: int = 6):
+    """One presubmitted run of ``pkg``'s python-node cluster; returns
+    (per-node batch keys, merged counters)."""
+    cluster = importlib.import_module(f"{pkg}.transport.cluster")
+    qhb = importlib.import_module(f"{pkg}.protocols.queueing_honey_badger")
+    dumps = ref_serde.dumps if pkg == "hbbft_tpu" else serde.dumps
+    c = cluster.LocalCluster(4, seed=seed, node_impl="python", crypto=crypto)
+    for k in range(rounds):
+        for i in range(4):
+            c.submit(i, qhb.Input.user(f"tx-{k}-{i}"))
+    c.start()
+    try:
+        ok = c.wait(lambda cl: all(len(cl.batches(i)) >= TARGET for i in range(4)),
+                    EPOCH_TIMEOUT_S)
+        assert ok, {i: len(c.batches(i)) for i in range(4)}
+        m = c.merged_metrics(fresh=True)
+        assert m.counters.get("cluster.handler_errors", 0) == 0
+        assert m.counters.get("cluster.bad_payload", 0) == 0
+        assert m.counters.get("cluster.protocol_faults", 0) == 0
+        keys = {
+            i: [(b.era, b.epoch, dumps(b.contributions)) for b in c.batches(i)[:TARGET]]
+            for i in range(4)
+        }
+        return keys, dict(m.counters)
+    finally:
+        c.stop()
+
+
+def test_arms_commit_the_reference_stream():
+    arms = [
+        ("hbbft_tpu", "inline"),
+        ("hbbft_tpu_torch", "inline"),
+        ("hbbft_tpu_torch", "service"),
+        ("hbbft_tpu_torch", "service-proc"),
+    ]
+    runs = {arm: _run_arm(*arm) for arm in arms}
+    for arm, (keys, _) in runs.items():
+        assert all(keys[i] == keys[0] for i in range(4)), f"nodes disagree in {arm}"
+    for _retry in range(2):
+        by_stream: dict = {}
+        for arm, (keys, _) in runs.items():
+            by_stream.setdefault(repr(keys[0]), []).append(arm)
+        if len(by_stream) == 1:
+            break
+        majority = max(by_stream.values(), key=len)
+        for group in by_stream.values():
+            if group is not majority:
+                for arm in group:
+                    runs[arm] = _run_arm(*arm)
+    ref = runs[("hbbft_tpu", "inline")][0]
+    for arm, (keys, _) in runs.items():
+        assert keys == ref, f"batch divergence in arm {arm}"
+    svc = runs[("hbbft_tpu_torch", "service")][1]
+    assert svc.get("crypto.flushes", 0) > 0 and svc.get("crypto.requests", 0) > 0, svc
+    assert svc.get("crypto.fallbacks", 0) == 0, svc
+    rpc = runs[("hbbft_tpu_torch", "service-proc")][1]
+    assert rpc.get("crypto.rpc.calls", 0) > 0, rpc
+    assert rpc.get("crypto.rpc.fallbacks", 0) == 0, rpc
+
+
+def test_keys_and_netinfo_match_the_reference():
+    """``deal_keys``/``build_netinfo`` draw the reference's keys from the
+    same seed: every process of a cluster derives them alone."""
+    from hbbft_tpu.crypto.suite import ScalarSuite as RefScalar
+    from hbbft_tpu.transport import cluster as ref_cluster
+    from hbbft_tpu_torch.crypto.suite import ScalarSuite
+    from hbbft_tpu_torch.transport import cluster as port_cluster
+
+    for seed in (0, 3):
+        a = ref_cluster.build_netinfo(4, 1, seed, RefScalar(), 2)
+        b = port_cluster.build_netinfo(4, 1, seed, ScalarSuite(), 2)
+        assert a.public_key_set.to_bytes() == b.public_key_set.to_bytes()
+        assert (a.secret_key_share.sign(b"doc").to_bytes()
+                == b.secret_key_share.sign(b"doc").to_bytes())
+        assert [a.public_key(i).to_bytes() for i in range(4)] == [
+            b.public_key(i).to_bytes() for i in range(4)]
+
+
+@pytest.mark.parametrize("kwargs, item", [
+    (dict(node_impl="native"), "Queue 1 item 3"),
+    (dict(node_impl={0: "python", 1: "native"}), "Queue 1 item 3"),
+    (dict(byzantine={3: "corrupt-share"}), "Queue 1 item 2"),
+])
+def test_unported_arguments_raise(kwargs, item):
+    with pytest.raises(ValueError, match=item):
+        LocalCluster(4, seed=0, **kwargs)
+
+
+def test_serve_obs_raises():
+    c = LocalCluster(4, seed=0)
+    try:
+        with pytest.raises(ValueError, match="Queue 1 item 2"):
+            c.serve_obs()
+    finally:
+        c.stop()
+
+
+def test_cluster_size_and_crypto_arm_validation():
+    with pytest.raises(ValueError, match="BFT bound"):
+        LocalCluster(3, num_faulty=1)
+    with pytest.raises(ValueError, match="unknown crypto arm"):
+        LocalCluster(4, crypto="service-rpc")
+    with pytest.raises(ValueError, match="service_kwargs requires"):
+        LocalCluster(4, service_kwargs=dict(window_s=0.1))

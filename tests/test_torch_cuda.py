@@ -322,3 +322,106 @@ def test_queueing_honey_badger_epoch_on_card_matches_host_backend(cuda):
             (f.node_id, f.kind) for f in host.node(nid).faults)
     assert card.delivered == host.delivered
     assert card.correct_faults() == []
+
+
+def test_sharded_flush_on_card_matches_unsharded(cuda):
+    """``TorchBackend(devices=[cuda, cuda])`` (K7's counterpart, one card
+    listed twice) on several chunks: the unsharded verdicts, and the same
+    kernel launches."""
+    suite = BLSSuite()
+    reqs = [r for s in _subsets(suite) for r in s]
+    build.reset_launches()
+    want = TorchBackend(suite, device=cuda, chunk=8).verify_batch(reqs)
+    plain = dict(build.LAUNCHES)
+    build.reset_launches()
+    got = TorchBackend(suite, devices=[cuda, cuda], chunk=8).verify_batch(reqs)
+    assert got == want == BatchedBackend(suite).verify_batch(reqs)
+    assert dict(build.LAUNCHES) == plain
+
+
+def test_sharded_flush_across_cards_matches_unsharded(cuda):
+    """``TorchBackend(devices=[cuda:0, cuda:1, ...])`` over every card:
+    chunk k scanned on card k mod n, the pairs gathered on cuda:0, and
+    the unsharded verdicts, rechecks and bisection of the bad chunks
+    included, with the same kernel launches."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    suite = BLSSuite()
+    reqs = [r for s in _subsets(suite) for r in s]
+    build.reset_launches()
+    want = TorchBackend(suite, device="cuda:0", chunk=8).verify_batch(reqs)
+    plain = dict(build.LAUNCHES)
+    be = TorchBackend(suite, devices=[f"cuda:{k}" for k in range(n)], chunk=8)
+    be.load_kernels()
+    scan, seen = be._scan, []
+
+    def rec_scan(subsets, dev=None):
+        out = scan(subsets, dev)
+        seen.append((dev is not None, out[0].device.index))  # a chunk's, or a bisection's
+        return out
+
+    be._scan = rec_scan
+    build.reset_launches()
+    got = be.verify_batch(reqs)
+    assert got == want == BatchedBackend(suite).verify_batch(reqs)
+    assert not all(got)
+    assert dict(build.LAUNCHES) == plain
+    chunk_cards = [card for is_chunk, card in seen if is_chunk]
+    assert len(chunk_cards) >= 2 and chunk_cards == [k % n for k in range(len(chunk_cards))]
+    assert all(card == 0 for is_chunk, card in seen if not is_chunk)
+
+
+def test_service_arm_cluster_on_card(cuda):
+    """A live 4-validator BLS cluster over localhost TCP whose every share
+    check the shared ``CryptoPlaneService`` merges into ``TorchBackend``
+    flushes on the card: every node commits the same batch, the flushes
+    launch the scan and pair kernels, and no client falls back."""
+    from hbbft_tpu_torch.cryptoplane import CryptoPlaneService
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input
+    from hbbft_tpu_torch.transport import LocalCluster
+
+    suite = BLSSuite()
+    backend = TorchBackend(suite, device=cuda)
+    backend.load_kernels()
+    service = CryptoPlaneService(backend, window_s=0.002)
+    build.reset_launches()
+    c = LocalCluster(4, seed=0, node_impl="python", suite=suite, crypto="service",
+                     crypto_service=service)
+    for i in range(4):
+        c.submit(i, Input.user(f"tx-{i}"))
+    c.start()
+    try:
+        assert c.wait(lambda cl: all(cl.batch_count(i) >= 1 for i in range(4)), 300)
+        m = c.merged_metrics(fresh=True)
+        first = [c.batches(i)[0] for i in range(4)]
+    finally:
+        c.stop()
+        service.stop()
+    assert all((b.era, b.epoch, b.contributions) == (first[0].era, first[0].epoch,
+                                                      first[0].contributions) for b in first)
+    assert m.counters.get("crypto.fallbacks", 0) == 0
+    assert m.counters.get("crypto.flush_errors", 0) == 0
+    assert m.counters.get("cluster.handler_errors", 0) == 0
+    assert m.counters["crypto.flushes"] > 0
+    assert all(build.LAUNCHES[k] >= m.counters["crypto.flushes"] for k in dpair.KERNELS)
+
+
+def test_bls_cluster_defaults_to_the_card(cuda):
+    """Named no backend, a BLS cluster's nodes (inline arm) and its
+    in-process service verify with ``TorchBackend`` on the card."""
+    from hbbft_tpu_torch.transport import LocalCluster
+
+    suite = BLSSuite()
+    c = LocalCluster(4, seed=0, suite=suite)
+    try:
+        assert all(isinstance(node.backend, TorchBackend) and node.backend.device.type == "cuda"
+                   for node in c.nodes.values())
+    finally:
+        c.stop()
+    c = LocalCluster(4, seed=0, suite=suite, crypto="service")
+    try:
+        be = c.crypto_service.backend
+        assert isinstance(be, TorchBackend) and be.device.type == "cuda"
+    finally:
+        c.stop()

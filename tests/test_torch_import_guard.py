@@ -186,6 +186,65 @@ def test_consensus_entry_points_refuse_without_a_card():
     assert "REFUSED 3" in res.stdout, res.stdout
 
 
+def test_crypto_plane_modules_are_checked_above():
+    """The crypto plane's modules are among those the fresh interpreter
+    above imports, so none of them loads ``jax`` or the JAX package."""
+    mods = set(_port_modules())
+    want = {
+        "hbbft_tpu_torch.traffic", "hbbft_tpu_torch.traffic.latency",
+        "hbbft_tpu_torch.cryptoplane", "hbbft_tpu_torch.cryptoplane.service",
+        "hbbft_tpu_torch.cryptoplane.proc_service", "hbbft_tpu_torch.transport",
+        "hbbft_tpu_torch.transport.framing", "hbbft_tpu_torch.transport.transport",
+        "hbbft_tpu_torch.transport.cluster", "hbbft_tpu_torch.obs.export",
+        "hbbft_tpu_torch.obs.analyze",
+    }
+    assert want <= mods, sorted(want - mods)
+
+
+def test_crypto_plane_entry_points_refuse_without_a_card():
+    """``HybridBackend()`` and a sharded ``TorchBackend`` raise with no
+    card; a service worker asked for the torch backend on ``cuda``, or a
+    BLS worker asked for no backend, exits nonzero before it reports
+    ready."""
+    code = (
+        "import subprocess, sys, torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from hbbft_tpu_torch.crypto.device.backend import HybridBackend, TorchBackend\n"
+        "n = 0\n"
+        "for c in (lambda: HybridBackend(), lambda: TorchBackend(devices=['cuda', 'cuda'])):\n"
+        "    try:\n"
+        "        c()\n"
+        "    except RuntimeError:\n"
+        "        n += 1\n"
+        "p = subprocess.run([sys.executable, '-m', 'hbbft_tpu_torch.cryptoplane.proc_service',\n"
+        "                    '--suite', 'bls', '--backend', 'torch', '--device', 'cuda'],\n"
+        "                   stdin=subprocess.DEVNULL, capture_output=True, text=True)\n"
+        "n += p.returncode != 0 and '\"ready\"' not in p.stdout\n"
+        "p = subprocess.run([sys.executable, '-m', 'hbbft_tpu_torch.cryptoplane.proc_service',\n"
+        "                    '--suite', 'bls'], stdin=subprocess.DEVNULL, capture_output=True,\n"
+        "                   text=True)\n"
+        "n += p.returncode != 0 and '\"ready\"' not in p.stdout\n"
+        "HybridBackend(device=HybridBackend.NO_DEVICE)\n"
+        "TorchBackend(devices=['cpu', 'cpu'])\n"
+        "print('REFUSED', n)\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "REFUSED 4" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("mod", [
+    "hbbft_tpu_torch.cryptoplane.proc_service", "hbbft_tpu_torch.transport.cluster",
+    "hbbft_tpu_torch.transport",
+])
+def test_crypto_plane_module_imports_first(mod):
+    """Each entry module of the crypto plane is importable as the first
+    import of a fresh interpreter (no circular import)."""
+    res = _run(f"import {mod}\nprint('OK')\n")
+    assert res.returncode == 0, res.stderr
+    assert "OK" in res.stdout, res.stdout
+
+
 @pytest.mark.parametrize("mod", [
     "hbbft_tpu_torch.protocols.sender_queue", "hbbft_tpu_torch.protocols.sync_key_gen",
     "hbbft_tpu_torch.protocols.dynamic_honey_badger",
