@@ -57,11 +57,11 @@ Phases (any failure raises and the script exits nonzero):
    port's simulation example at the reference's defaults (10 nodes, 128
    transactions) over BLS with ``--backend torch``, every node committing
    every transaction;
-6. the crypto plane: (a) a live cluster of 16 BLS validators over
-   localhost TCP (``LocalCluster``) whose every node's share checks one
-   shared ``CryptoPlaneService`` merges into ``TorchBackend`` flushes on
-   the card, until every node has committed all 16 transactions: the
-   nodes' streams alike, no handler error, no fault, no fallback to a
+6. the crypto plane: (a) a live cluster of 4 BLS validators over
+   localhost TCP (``LocalCluster``; phase 7 (a) runs 16) whose every
+   node's share checks one shared ``CryptoPlaneService`` merges into
+   ``TorchBackend`` flushes on the card, until every node has committed
+   all 4 transactions: the nodes' streams alike, no handler error, no fault, no fallback to a
    node's host backend, the scan and pair kernels launched on every
    service flush, the first 4 service flushes held against the host
    ``BatchedBackend``, with the flushes, requests per flush, the
@@ -75,7 +75,25 @@ Phases (any failure raises and the script exits nonzero):
    sharded flush (``TorchBackend(devices=["cuda:0", "cuda:0"])``, K7's
    counterpart) on the firehose, the firehose with a bad share in a chunk
    scanned on ``devices[1]``, and mixed-512, with the unsharded verdicts
-   and launches.
+   and launches;
+7. traffic and chaos, each in a process of its own started right after
+   the build and run beside phases 1-6 (both are host-paced and together
+   outlast what the time limit leaves; beside them phase 1's kernel times
+   stay within their spread from call to call, PERF.md §6): (a)
+   traffic-16-wan, open-loop clients (``ClientFleet(32, 80/16^2 txn/s
+   each)`` for 2 s through a ``TrafficDriver``) over a 16-node BLS cluster whose every link a seeded
+   ``FaultInjector`` shapes as a WAN (``wan_profile("wan")``), its share
+   checks merged by one service into ``TorchBackend`` flushes, scraped once
+   mid-run (``serve_obs``: ``/healthz``, ``/metrics``, ``/trace.json``):
+   every transaction committed exactly once on every node, the streams
+   alike, the first 4 service flushes held against the host
+   ``BatchedBackend``, with submit-to-commit latency, epochs, flushes, the
+   backend's stages and the busy share; (b) chaos-10-mixed, a 10-node BLS
+   cluster with three live Byzantine nodes (corrupt shares, equivocation,
+   garbage) under open-loop traffic homed on the honest nodes:
+   ``ChaosOracle.check_all()`` (safety, progress, exactly-once,
+   attribution), the corrupt shares rejected on the card by bisection and
+   only they, the first 4 flushes holding one held against the host.
 
 The last three lines are one JSON object with every kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.  With no CUDA card, or
@@ -1014,11 +1032,13 @@ class FlushLog:
 def instrument(be) -> dict:
     """Time ``TorchBackend`` ``be``'s stages over the flushes that follow,
     each with a sync around it: host prep, scan (``_scan``'s time, the
-    prep inside it included), the pair check of each flush, the bisection levels after a failed
-    check (their own prep, scan and pair included), and the single failing
-    requests that bisection sends to the host ``EagerBackend``."""
+    prep inside it included), the pair check of each flush, the bisections
+    after a failed check (their own prep, scan and pair included) and the
+    levels inside them (one scan and one pair stage a level), and the
+    single failing requests that bisection sends to the host
+    ``EagerBackend``."""
     stats = {"prep": 0.0, "scan": 0.0, "pair": 0.0, "bisect": 0.0, "bisections": 0,
-             "eager": 0.0, "eager_requests": 0}
+             "level": 0.0, "levels": 0, "eager": 0.0, "eager_requests": 0}
 
     def timed(name, fn, count=None, of=lambda args: 1):
         def run(*args, **kwargs):
@@ -1036,6 +1056,7 @@ def instrument(be) -> dict:
     be._scan = timed("scan", be._scan)
     be._check_parts = timed("pair", be._check_parts)
     be._bisect = timed("bisect", be._bisect, "bisections")
+    be._aggregate_ok_many = timed("level", be._aggregate_ok_many, "levels")
     be._eager.verify_batch = timed("eager", be._eager.verify_batch, "eager_requests",
                                    lambda args: len(args[0]))
     return stats
@@ -1043,7 +1064,7 @@ def instrument(be) -> dict:
 
 def uninstrument(be) -> None:
     """Take :func:`instrument`'s timers off ``be``."""
-    for name in ("_scan_prep", "_scan", "_check_parts", "_bisect"):
+    for name in ("_scan_prep", "_scan", "_check_parts", "_bisect", "_aggregate_ok_many"):
         delattr(be, name)
     del be._eager.verify_batch
 
@@ -1650,27 +1671,17 @@ def _launch_delta(before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items() if v - before.get(k, 0)}
 
 
-def _plane_service(card: str, flush_kernels: tuple) -> None:
-    """(a) cryptoplane-16: 16 BLS validators over TCP, one shared service
-    over ``TorchBackend``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from hbbft_tpu_torch import build
+def _service_backend(suite, what: str) -> tuple:
+    """``TorchBackend`` on the card for a crypto service: its kernels loaded
+    and one flush run before any node waits on the service (a first flush
+    that loads them must not outlast a client's timeout), its stages timed
+    (:func:`instrument`) and a :class:`FlushLog` in front of its flushes.
+    Returns (backend, stage stats, flush log, warm-up seconds)."""
     from hbbft_tpu_torch.crypto import keys
     from hbbft_tpu_torch.crypto.backend import VerifyRequest
-    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
     from hbbft_tpu_torch.crypto.device.backend import TorchBackend
-    from hbbft_tpu_torch.cryptoplane import CryptoPlaneService
-    from hbbft_tpu_torch.obs.trace import TraceBuffer
-    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input
-    from hbbft_tpu_torch.transport import LocalCluster
 
-    n = 16
-    suite = BLSSuite()
     be = TorchBackend(suite)
-    # Warm: the kernels loaded and one flush run before any node waits on
-    # the service (a first flush that loads them must not outlast a
-    # client's timeout).
     t0 = time.perf_counter()
     be.load_kernels()
     sks = keys.SecretKeySet.random(1, random.Random(3), suite)
@@ -1678,11 +1689,38 @@ def _plane_service(card: str, flush_kernels: tuple) -> None:
     warm = [VerifyRequest.sig_share(pks.public_key_share(i), b"warm",
                                     sks.secret_key_share(i).sign(b"warm")) for i in range(4)]
     if not all(be.verify_batch(warm)):
-        raise AssertionError("cryptoplane-16: the warm-up flush rejected a valid share")
+        raise AssertionError(f"{what}: the warm-up flush rejected a valid share")
     warm_s = time.perf_counter() - t0
     stats = instrument(be)
     rec = FlushLog(types.SimpleNamespace(verify_batch=be.verify_batch))
     be.verify_batch = rec.verify_batch  # the service still holds TorchBackend
+    return be, stats, rec, warm_s
+
+
+def _busy_share(prof, wall: float) -> tuple:
+    """The card's busy microseconds under ``prof`` and their share of
+    ``wall`` seconds ("not measured" when the profiler saw no device time)."""
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return busy_us, (f"{100 * busy_us / (wall * 1e6):.2f}%" if busy_us > 0 else "not measured")
+
+
+def _plane_service(card: str, flush_kernels: tuple) -> None:
+    """(a) cryptoplane-4: 4 BLS validators over TCP, one shared service over
+    ``TorchBackend``.  Cut from 16 validators to 4 for the script's time
+    limit: phase 7 (a) drives the same service at 16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.cryptoplane import CryptoPlaneService
+    from hbbft_tpu_torch.obs.trace import TraceBuffer
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input
+    from hbbft_tpu_torch.transport import LocalCluster
+
+    n = 4
+    what = f"cryptoplane-{n}"
+    suite = BLSSuite()
+    be, stats, rec, warm_s = _service_backend(suite, what)
     service = CryptoPlaneService(be, window_s=0.002, trace=TraceBuffer("cryptoplane"))
     cluster = LocalCluster(n, seed=0, node_impl="python", suite=suite, crypto="service",
                            crypto_service=service)
@@ -1698,33 +1736,32 @@ def _plane_service(card: str, flush_kernels: tuple) -> None:
                                                for i in range(n)), 300.0, poll_s=0.05)
             wall = time.perf_counter() - t0
             torch.cuda.synchronize()
-        m = cluster.merged_metrics(fresh=True)
     finally:
-        cluster.stop()
+        cluster.stop()  # every node's flushes answered: the counts below are final
         service.stop()
+    m = cluster.merged_metrics(fresh=True)
     launches = _launch_delta(before)
     if not done:
-        raise AssertionError(f"cryptoplane-16: not every node committed all {n} transactions "
+        raise AssertionError(f"{what}: not every node committed all {n} transactions "
                              f"within 300 s: {[len(_cluster_txns(cluster, i)) for i in range(n)]}")
-    batches = _cluster_streams_alike(cluster, range(n), "cryptoplane-16")
-    _cluster_clean(m, "cryptoplane-16")
+    batches = _cluster_streams_alike(cluster, range(n), what)
+    _cluster_clean(m, what)
     flushes, reqs = m.counters.get("crypto.flushes", 0), m.counters.get("crypto.requests", 0)
     if flushes == 0 or flushes != len(rec.flushes):
-        raise AssertionError(f"cryptoplane-16: {flushes} service flushes, {len(rec.flushes)} logged")
+        raise AssertionError(f"{what}: {flushes} service flushes, {len(rec.flushes)} logged")
     short = [k for k in flush_kernels if launches.get(k, 0) < flushes]
     if short:
-        raise AssertionError(f"cryptoplane-16: {short} launched fewer times than the {flushes} "
+        raise AssertionError(f"{what}: {short} launched fewer times than the {flushes} "
                              f"service flushes: {launches}")
     verdicts = rec.verdicts()
     if not all(verdicts):
-        raise AssertionError(f"cryptoplane-16: {verdicts.count(False)} verdicts False")
+        raise AssertionError(f"{what}: {verdicts.count(False)} verdicts False")
     held = 4
-    host_s = _host_check(suite, rec, held, "cryptoplane-16")
+    host_s = _host_check(suite, rec, held, what)
     wait = m.timers["crypto.wait"]
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-    share = f"{100 * busy_us / (wall * 1e6):.2f}%" if busy_us > 0 else "not measured"
+    busy_us, share = _busy_share(prof, wall)
     sizes = rec.sizes()
-    log(f"crypto plane (a) cryptoplane-16: LocalCluster(16, seed=0, python nodes, BLS, "
+    log(f"crypto plane (a) {what}: LocalCluster({n}, seed=0, python nodes, BLS, "
         f"crypto=service) over localhost TCP, one Input.user a node: every node committed all "
         f"{n} in {batches} batch(es), streams alike, no handler error, fault or fallback; wall "
         f"{wall:.3f} s (warm-up {warm_s:.2f} s before it)  [{card}]")
@@ -1920,6 +1957,354 @@ def phase_cryptoplane(card: str, firehose: list, mixed: list, bad: list) -> dict
     return launches
 
 
+# Phase 7's deadlines.  Alone on the card (PERF.md §6), traffic-16-wan
+# drained its 4 epochs in 416.7 s, and chaos-10-mixed drained in 473.6 s
+# and the oracle's 2 more epochs took 65.1 s; the script gives up on
+# phase 7 at TRAFFIC_DEADLINE_S from its start, inside its 1,200 s limit.
+TRAFFIC_DRAIN_S = 700.0
+CHAOS_PROGRESS_S = 300.0
+TRAFFIC_DEADLINE_S = 1140.0
+
+
+def _scrape_once(cluster, service, out: dict):
+    """Scrape the cluster's scrape server once, from a thread of its own,
+    as soon as the service has flushed: ``/healthz`` (its status and
+    body), ``/metrics`` and ``/trace.json`` go into ``out``.  Returns the
+    thread; setting ``out["stop"]`` ends its wait."""
+    import threading
+    import urllib.request
+
+    def get(url: str):
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.read()
+
+    def run():
+        try:
+            base = f"http://127.0.0.1:{cluster.serve_obs().port}"
+            while service.metrics.counters.get("crypto.flushes", 0) == 0 and "stop" not in out:
+                time.sleep(0.05)
+            t0 = time.perf_counter()
+            out["healthz"] = get(base + "/healthz")
+            out["metrics"] = get(base + "/metrics")[1].decode()
+            out["trace"] = json.loads(get(base + "/trace.json")[1])
+            out["seconds"] = time.perf_counter() - t0
+        except Exception as exc:  # reported by the caller's check
+            out["error"] = repr(exc)
+
+    th = threading.Thread(target=run, name="obs-scrape", daemon=True)
+    th.start()
+    return th
+
+
+def _covered(cluster, ids, admitted: set) -> bool:
+    from hbbft_tpu_torch.chaos import stream_txns
+    from hbbft_tpu_torch.traffic import txn_id_of
+
+    return all(admitted <= {txn_id_of(t) for t in stream_txns(cluster, i)} for i in ids)
+
+
+def _traffic_wan(card: str, flush_kernels: tuple) -> None:
+    """(a) traffic-16-wan: open-loop clients over a WAN-shaped 16-node BLS
+    cluster whose share checks one service merges into ``TorchBackend``
+    flushes, scraped once while it runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.chaos import ChaosOracle
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.cryptoplane import CryptoPlaneService
+    from hbbft_tpu_torch.obs.trace import TraceBuffer
+    from hbbft_tpu_torch.traffic import ClientFleet, TrafficDriver
+    from hbbft_tpu_torch.transport import FaultInjector, LocalCluster, wan_profile
+
+    n = 16
+    suite = BLSSuite()
+    be, stats, rec, warm_s = _service_backend(suite, "traffic-16-wan")
+    service = CryptoPlaneService(be, window_s=0.002, trace=TraceBuffer("cryptoplane"))
+    inj = FaultInjector(seed=0, default=wan_profile("wan"))
+    cluster = LocalCluster(n, seed=0, node_impl="python", suite=suite, crypto="service",
+                           crypto_service=service, injector=inj)
+    fleet = ClientFleet(32, 80 / n ** 2, seed=0)
+    driver = TrafficDriver(cluster, fleet)
+    scrape: dict = {}
+    before = dict(build.LAUNCHES)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cluster.start()
+            scraper = _scrape_once(cluster, service, scrape)
+            res = driver.run_open_loop(2.0, drain_timeout_s=TRAFFIC_DRAIN_S)
+            drained_s = time.perf_counter() - t0
+            admitted = {tid for _, _, tid, _ in ClientFleet(32, 80 / n ** 2, seed=0).take(
+                res["admitted"])}
+            covered = cluster.wait(lambda cl: _covered(cl, range(n), admitted), 120.0,
+                                   poll_s=0.05)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        scrape["stop"] = True
+        scraper.join(300)
+        epochs = min(cluster.batch_count(i) for i in range(n))
+    finally:
+        cluster.stop()  # every node's flushes answered: the counts below are final
+        service.stop()
+    m = cluster.merged_metrics(fresh=True)
+    launches = _launch_delta(before)
+    hist = driver.recorder.hist
+    flushes, reqs = m.counters.get("crypto.flushes", 0), m.counters.get("crypto.requests", 0)
+    busy_us, share = _busy_share(prof, wall)
+    fstats = {k: getattr(inj.stats, k) for k in inj.stats.NAMES}
+    log(f"traffic (a) traffic-16-wan: LocalCluster(16, seed=0, python nodes, BLS, "
+        f"SenderQueue(QueueingHoneyBadger) batch 8, crypto=service over TorchBackend, "
+        f"window 2 ms), FaultInjector(seed=0, wan_profile('wan')) on every link, "
+        f"ClientFleet(32, {80 / n ** 2} txn/s each, seed=0) open loop for 2.0 s: offered "
+        f"{res['arrived']}, admitted {res['admitted']}, committed {res['committed']}, "
+        f"outstanding {res['outstanding']}; drained at {drained_s:.3f} s, every node's stream "
+        f"covered at {wall:.3f} s (warm-up {warm_s:.2f} s before it); {epochs} epochs  [{card}]")
+    log(f"traffic (a) submit->commit p50 {hist.quantile(0.5):.3f} s, p99 "
+        f"{hist.quantile(0.99):.3f} s, max {hist.max:.3f} s over {hist.count} transactions; "
+        f"{flushes} service flushes, {reqs} requests = {reqs / max(flushes, 1):.2f} a flush "
+        f"(largest {max(rec.sizes(), default=0)}); injector {json.dumps(fstats)}  [{card}]")
+    log(f"traffic (a) {_stage_line(stats, rec.seconds)}; device busy {busy_us:.0f} us of "
+        f"{wall * 1e6:.0f} us = {share}  [{card}]")
+    log(f"traffic (a) launches: {json.dumps(launches, sort_keys=True)}")
+    if "error" in scrape or "healthz" not in scrape:
+        raise AssertionError(f"traffic-16-wan: the live scrape failed: {scrape.get('error')}")
+    status, body = scrape["healthz"]
+    health = json.loads(body)
+    if status != 200 or not health["ok"] or len(health["nodes"]) != n:
+        raise AssertionError(f"traffic-16-wan: /healthz answered {status}: {health}")
+    if 'hbbft_count{name="crypto.flushes"}' not in scrape["metrics"]:
+        raise AssertionError("traffic-16-wan: /metrics carries no crypto.flushes counter")
+    tracks = {e["args"]["name"] for e in scrape["trace"]["traceEvents"]
+              if e["name"] == "process_name"}
+    log(f"traffic (a) live scrape after the first service flush: /healthz 200 ok, {n} nodes "
+        f"alive; /metrics {len(scrape['metrics'])} bytes with crypto.flushes; /trace.json "
+        f"{len(scrape['trace']['traceEvents'])} events on {len(tracks)} tracks; "
+        f"{scrape['seconds']:.3f} s  [{card}]")
+    if res["outstanding"] or not covered:
+        raise AssertionError(f"traffic-16-wan: {res['outstanding']} transactions outstanding "
+                             f"after the drain; every node's stream covered: {covered}")
+    oracle = ChaosOracle(cluster, driver=driver)
+    once = oracle.assert_exactly_once()
+    if once != res["admitted"] or res["admitted"] != res["arrived"] or not admitted:
+        raise AssertionError(f"traffic-16-wan: {once} committed of {res}")
+    _cluster_streams_alike(cluster, range(n), "traffic-16-wan")
+    _cluster_clean(m, "traffic-16-wan")
+    if flushes == 0 or flushes != len(rec.flushes):
+        raise AssertionError(f"traffic-16-wan: {flushes} service flushes, "
+                             f"{len(rec.flushes)} logged")
+    short = [k for k in flush_kernels if launches.get(k, 0) < flushes]
+    if short:
+        raise AssertionError(f"traffic-16-wan: {short} launched fewer times than the "
+                             f"{flushes} service flushes: {launches}")
+    if not all(rec.verdicts()) or fstats["shaped"] == 0:
+        raise AssertionError(f"traffic-16-wan: {rec.verdicts().count(False)} verdicts False, "
+                             f"{fstats['shaped']} frames shaped")
+    host_s = _host_check(suite, rec, 4, "traffic-16-wan")
+    log(f"traffic (a) every admitted transaction committed exactly once on all {n} nodes, "
+        f"streams alike, no handler error, fault, fallback or flush error; first 4 service "
+        f"flushes == BatchedBackend (host, {host_s:.2f} s)  [{card}]")
+
+
+def _chaos_mixed(card: str, flush_kernels: tuple) -> None:
+    """(b) chaos-10-mixed: three live Byzantine nodes (corrupt shares,
+    equivocation, garbage) in a 10-node BLS cluster under open-loop
+    traffic; the corrupt shares reach the service, fail the RLC check and
+    are bisected out on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.chaos import ChaosOracle, fault_entries
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.cryptoplane import CryptoPlaneService
+    from hbbft_tpu_torch.obs.trace import TraceBuffer
+    from hbbft_tpu_torch.traffic import ClientFleet, TrafficDriver
+    from hbbft_tpu_torch.transport import LocalCluster
+
+    n = 10
+    byzantine = {7: "corrupt-share", 8: "equivocate", 9: "flood"}
+    suite = BLSSuite()
+    be, stats, rec, warm_s = _service_backend(suite, "chaos-10-mixed")
+    service = CryptoPlaneService(be, window_s=0.002, trace=TraceBuffer("cryptoplane"))
+    cluster = LocalCluster(n, seed=0, node_impl="python", suite=suite, crypto="service",
+                           crypto_service=service, byzantine=byzantine)
+    honest = cluster.honest_ids
+    driver = TrafficDriver(cluster, ClientFleet(14, 80 / n ** 2, seed=0),
+                           assign=lambda cid: cid % len(honest))
+    before = dict(build.LAUNCHES)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cluster.start()
+            res = driver.run_open_loop(2.0, drain_timeout_s=TRAFFIC_DRAIN_S)
+            drained_s = time.perf_counter() - t0
+            evidence = ChaosOracle(cluster, driver=driver).check_all(timeout_s=CHAOS_PROGRESS_S)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+    finally:
+        cluster.stop()  # every node's flushes answered: the counts below are final
+        service.stop()
+    m = cluster.merged_metrics(fresh=True)
+    accused = sorted({s for i in honest for s, _ in fault_entries(cluster.nodes[i])})
+    signer7 = cluster.nodes[0].netinfo.public_key_share(7).to_bytes()
+    launches = _launch_delta(before)
+    flushes, reqs = m.counters.get("crypto.flushes", 0), m.counters.get("crypto.requests", 0)
+    busy_us, share = _busy_share(prof, wall)
+    c = m.counters
+    tampered = c.get("chaos.tampered_shares", 0)
+    rejected = [(k, r) for k, (rs, out) in enumerate(rec.flushes)
+                for r, ok in zip(rs, out) if not ok]
+    by7 = sum(1 for _, r in rejected if r.kind != "ciphertext"
+              and r.payload[0].to_bytes() == signer7)
+    bad_flushes = sorted({k for k, _ in rejected})
+    log(f"chaos (b) chaos-10-mixed: LocalCluster(10, seed=0, python nodes, BLS, byzantine="
+        f"{byzantine}, crypto=service over TorchBackend, window 2 ms), ClientFleet(14, "
+        f"{80 / n ** 2} txn/s each, seed=0) homed on nodes 0-6, open loop for 2.0 s: offered "
+        f"{res['arrived']}, committed {res['committed']}, drained at {drained_s:.3f} s; "
+        f"check_all {json.dumps(evidence, sort_keys=True)} at {wall:.3f} s (warm-up "
+        f"{warm_s:.2f} s before it); honest fault logs accuse {accused}  [{card}]")
+    log(f"chaos (b) chaos.tampered_shares {tampered}, equivocated "
+        f"{c.get('chaos.equivocated', 0)}, garbage payloads {c.get('chaos.garbage_payloads', 0)}, "
+        f"raw corrupt frames {c.get('chaos.raw_corrupt_frames', 0)}; transport strikes "
+        f"{c.get('transport.peer_misbehavior', 0)}, bans {c.get('transport.peer_bans', 0)}, "
+        f"rejected reconnects {c.get('transport.ban_rejects', 0)}; bad payloads "
+        f"{c.get('cluster.bad_payload', 0)}, protocol faults {c.get('cluster.protocol_faults', 0)}"
+        f"  [{card}]")
+    log(f"chaos (b) {flushes} service flushes, {reqs} requests = {reqs / max(flushes, 1):.2f} a "
+        f"flush; {len(rejected)} requests rejected ({by7} signed as node 7) in "
+        f"{len(bad_flushes)} flushes; {stats['bisections']} flushes bisected over "
+        f"{stats['levels']} levels; {_stage_line(stats, rec.seconds)}; device busy "
+        f"{busy_us:.0f} us of {wall * 1e6:.0f} us = {share}  [{card}]")
+    log(f"chaos (b) launches: {json.dumps(launches, sort_keys=True)}")
+    if 7 not in accused or not set(accused) <= set(byzantine):
+        raise AssertionError(f"chaos-10-mixed: honest fault logs accuse {accused}")
+    if tampered == 0 or not rejected or by7 != len(rejected):
+        raise AssertionError(f"chaos-10-mixed: {tampered} tampered shares, {len(rejected)} "
+                             f"rejected, {by7} of them node 7's")
+    if stats["bisections"] == 0 or stats["levels"] == 0:
+        raise AssertionError(f"chaos-10-mixed: no bisection on the card: {stats}")
+    bad = {k: c.get(k, 0) for k in ("cluster.handler_errors", "crypto.fallbacks",
+                                    "crypto.rpc.fallbacks", "crypto.flush_errors")}
+    if any(bad.values()):
+        raise AssertionError(f"chaos-10-mixed: {bad}")
+    if flushes == 0 or flushes != len(rec.flushes):
+        raise AssertionError(f"chaos-10-mixed: {flushes} service flushes, "
+                             f"{len(rec.flushes)} logged")
+    missing = [k for k in flush_kernels if launches.get(k, 0) < flushes]
+    if missing:
+        raise AssertionError(f"chaos-10-mixed: {missing} launched fewer times than the "
+                             f"{flushes} service flushes: {launches}")
+    held = tuple(bad_flushes[:4])
+    host_s = _host_check(suite, rec, 0, "chaos-10-mixed", also=held)
+    log(f"chaos (b) the {len(held)} first service flushes holding a rejected share {list(held)} "
+        f"== BatchedBackend (host, {host_s:.2f} s); no handler error, fallback or flush error"
+        f"  [{card}]")
+
+
+def _traffic_child(which: str, card: str, out_path: str) -> None:
+    """One run of phase 7 in a process of its own: (a) or (b), the launch
+    counts set to 0 just before it and written to ``out_path`` (JSON)
+    just after.  An exception exits the process nonzero."""
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+
+    flush_kernels = (*dscan.KERNELS, *dpair.KERNELS)
+    run = {"a": _traffic_wan, "b": _chaos_mixed}[which]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run(card, flush_kernels)
+    with open(out_path, "w") as f:
+        json.dump({"launches": dict(build.LAUNCHES), "seconds": time.perf_counter() - t0}, f)
+
+
+def start_phase_traffic(card: str) -> list:
+    """Start phase 7's two runs, (a) and (b), each in a process of its own
+    beside phases 1-6: both are host-paced (the card busy
+    3-5%; PERF.md §5) and, one after another, outlast what the script's
+    time limit leaves.  Each process has its own interpreter, so neither
+    waits on the other's GIL or on this one's.  Returns the handles for
+    :func:`phase_traffic`."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_traffic_")
+    runs = []
+    for which in ("a", "b"):
+        path = os.path.join(out_dir, f"{which}.json")
+        proc = ctx.Process(target=_traffic_child, args=(which, card, path),
+                           name=f"phase7-{which}")
+        proc.start()
+        runs.append((which, proc, path))
+    return runs
+
+
+def stop_phase_traffic(runs: list) -> None:
+    """Stop whatever of phase 7 still runs (the script failed elsewhere)."""
+    for _, proc, _ in runs:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
+def phase_traffic(card: str, runs: list, deadline: float) -> dict:
+    """Traffic and chaos on the card: open-loop clients over a WAN-shaped
+    16-node BLS cluster (a), and three live Byzantine nodes in a 10-node
+    BLS cluster whose corrupt shares the card's bisection rejects (b).
+    Waits (until ``deadline`` on the ``time.perf_counter`` clock) for the
+    processes :func:`start_phase_traffic` started and returns the kernels'
+    launches over (a) and (b), each run's counts set to 0 just before it."""
+    launches: dict = {}
+    took = {}
+    for which, proc, path in runs:
+        proc.join(max(0.0, deadline - time.perf_counter()))
+        if proc.is_alive():
+            stop_phase_traffic(runs)
+            raise AssertionError(f"traffic and chaos: ({which}) still ran at the deadline")
+        if proc.exitcode != 0:
+            raise AssertionError(f"traffic and chaos: ({which}) exited {proc.exitcode}")
+        with open(path) as f:
+            out = json.load(f)
+        took[which] = out["seconds"]
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"traffic and chaos: (a) {took['a']:.1f} s, (b) {took['b']:.1f} s, each in a process "
+        f"of its own beside phases 1-6  [{card}]")
+    return launches
+
+
+def _requests() -> tuple:
+    """The flush's workloads, built on the host: the suite, firehose-10240
+    and mixed-512 with its bad indices."""
+    from hbbft_tpu_torch.crypto import keys
+    from hbbft_tpu_torch.crypto.backend import VerifyRequest
+    from hbbft_tpu_torch.crypto.bls import curve as oc
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
+
+    suite = BLSSuite()
+    t0 = time.perf_counter()
+    firehose = _firehose(keys, VerifyRequest, suite)
+    mixed, bad = _mixed_512(keys, VerifyRequest, suite, G2Elem, oc._twist_sample_point())
+    log(f"built {len(firehose)} firehose and {len(mixed)} mixed requests on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return suite, firehose, mixed, bad
+
+
+def _phases_2_to_6(card: str, suite, firehose: list, mixed: list, bad: list) -> dict:
+    """Phases 2-6; returns each main path's launches, its counts set to 0
+    just before it."""
+    paths = {"dataplane": phase_dataplane(card)}
+    paths["flush"] = phase_flush(card, suite, firehose, mixed, bad)
+    paths["consensus"] = phase_consensus(card)
+    paths["dynamic"] = phase_dynamic(card)
+    paths["cryptoplane"] = phase_cryptoplane(card, firehose, mixed, bad)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1929,34 +2314,26 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from hbbft_tpu_torch import build
-    from hbbft_tpu_torch.crypto import keys
-    from hbbft_tpu_torch.crypto.backend import VerifyRequest
-    from hbbft_tpu_torch.crypto.bls import curve as oc
-    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite, G2Elem
 
     log(f"device free memory before any kernel: {free_mib():.0f} MiB")
     t0 = time.perf_counter()
     build.build_all(["keccak", "fq", "scan", "pair"], verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-
-    suite = BLSSuite()
-    t0 = time.perf_counter()
-    firehose = _firehose(keys, VerifyRequest, suite)
-    mixed, bad = _mixed_512(keys, VerifyRequest, suite, G2Elem, oc._twist_sample_point())
-    log(f"built {len(firehose)} firehose and {len(mixed)} mixed requests on the host in "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    kernels = phase_kernels(card, leaf_shape=(104 * 104, 14))
-    kernels.append(phase_field(card))
-    kernels += phase_scan(card, firehose, mixed)
-    kernels += phase_pair(card, firehose, mixed, bad)
-    # Each main path's launches, its counts set to 0 just before it; a
-    # kernel's "launches" is their sum.
-    paths = {"dataplane": phase_dataplane(card)}
-    paths["flush"] = phase_flush(card, suite, firehose, mixed, bad)
-    paths["consensus"] = phase_consensus(card)
-    paths["dynamic"] = phase_dynamic(card)
-    paths["cryptoplane"] = phase_cryptoplane(card, firehose, mixed, bad)
+    # Phase 7 from here on, beside phases 1-6.  Each main path's launches,
+    # its counts set to 0 just before it; a kernel's "launches" is their sum.
+    traffic = start_phase_traffic(card)
+    try:
+        suite, firehose, mixed, bad = _requests()
+        t0 = time.perf_counter()
+        kernels = phase_kernels(card, leaf_shape=(104 * 104, 14))
+        kernels.append(phase_field(card))
+        kernels += phase_scan(card, firehose, mixed)
+        kernels += phase_pair(card, firehose, mixed, bad)
+        log(f"phase 1 {time.perf_counter() - t0:.1f} s  [{card}]")
+        paths = _phases_2_to_6(card, suite, firehose, mixed, bad)
+        paths["traffic"] = phase_traffic(card, traffic, t_start + TRAFFIC_DEADLINE_S)
+    finally:
+        stop_phase_traffic(traffic)
     for k in kernels:
         k["launches_by_path"] = {p: launches.get(k["name"], 0) for p, launches in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -430,9 +430,10 @@ class TorchBackend(CryptoBackend):
         and a pair stage) per half.  Here every half of one bisection
         level is checked in one scan and one pair stage: the same halves,
         the same coefficients and the same verdicts.  Each stage has a
-        floor whatever its rows (a K3 pair stage takes ~23 ms on an H100
-        at one subset or six, most of it ``pair_miller``'s one-thread
-        chain), so this pays one stage per level instead of one per half.
+        floor whatever its rows (a K3 pair stage takes ~7.4 ms on an H100
+        at 10 pairs, ``pair_miller`` a warp per pair and ``pair_final`` a
+        warp per subset; ``PERF.md`` §6), so this pays one stage per level
+        instead of one per half.
         ``benchmarks_torch/bisect_ab.py`` times the two orders against
         each other on the mixed-512 batch; ``PERF.md`` keeps its numbers.
         Single failing requests go to :class:`EagerBackend`.
@@ -473,13 +474,14 @@ class HybridBackend(CryptoBackend):
     accelerator and went host-only when none answered), and a device
     flush that raises propagates (the reference served that flush and
     every later one from the host).  Host-only is the caller's explicit
-    choice: ``device=HybridBackend.NO_DEVICE``.
+    choice: ``device=HybridBackend.NO_DEVICE``.  :attr:`on_device` is true
+    only with a device backend, so a crypto service fails a host-only
+    flush that raises over to its clients' fallback, as the reference
+    does, and lets a device backend's error reach its callers.
 
     Verdict-identical to both constituents by construction: every
     backend implements the same RLC/bisection semantics.
     """
-
-    on_device = True
 
     # Pass as ``device=`` for host-only mode (None means "the card").
     NO_DEVICE: Any = object()
@@ -500,6 +502,10 @@ class HybridBackend(CryptoBackend):
             self.device = device
         else:
             self.device = TorchBackend(self.suite)
+
+    @property
+    def on_device(self) -> bool:
+        return self.device is not None
 
     def verify_batch(self, reqs: Sequence[VerifyRequest]) -> List[bool]:
         reqs = list(reqs)

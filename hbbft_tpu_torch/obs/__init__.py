@@ -11,8 +11,11 @@
 * :mod:`hbbft_tpu_torch.obs.analyze` — the consensus critical-path
   analyzer and live stall diagnostician over the same rings.
 
-Copy of ``hbbft_tpu/obs/`` without the scrape server (``server.py``,
-ROADMAP Queue 1).
+* :mod:`hbbft_tpu_torch.obs.server` — the live scrape endpoints of a
+  running cluster (``/metrics``, ``/trace.json``, ``/healthz``,
+  ``/diag``).
+
+Copy of ``hbbft_tpu/obs/``.
 
 Re-exports resolve LAZILY (PEP 562), as in the reference: every protocol
 module does ``from hbbft_tpu_torch.obs import trace`` on import.
@@ -33,6 +36,7 @@ _EXPORTS = {
     "merge_diags": "hbbft_tpu_torch.obs.analyze",
     "derived_summaries": "hbbft_tpu_torch.obs.analyze",
     "tracks_from_chrome": "hbbft_tpu_torch.obs.analyze",
+    "ObsServer": "hbbft_tpu_torch.obs.server",
 }
 
 __all__ = sorted(_EXPORTS)

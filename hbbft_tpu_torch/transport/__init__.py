@@ -6,14 +6,21 @@ selectors-based per-node event loop with backpressure, reconnect and
 sendmsg vectored egress (:mod:`.transport`), and a thread-per-node
 cluster harness (:mod:`.cluster`).
 
-Copy of the part of ``hbbft_tpu/transport/`` that drives the crypto
-plane.  The process-per-node runtime (``proc_cluster.py``,
-``cluster_worker.py``) and the fault injector (``faults.py``) come with
-ROADMAP.md Queue 1 item 2, the native node (``native_node.py``) with
-item 3.
+Copy of ``hbbft_tpu/transport/`` for Python nodes, with the
+deterministic byte-level fault injector (:mod:`.faults`).  The
+process-per-node runtime (``proc_cluster.py``, ``cluster_worker.py``) and
+the native node (``native_node.py``) wait for ROADMAP.md Queue 1's
+process-per-node and native-engine items.
 """
 
 from hbbft_tpu_torch.transport.cluster import ClusterNode, LocalCluster
+from hbbft_tpu_torch.transport.faults import (
+    FaultInjector,
+    FaultStats,
+    LinkFaults,
+    PartitionSpec,
+    wan_profile,
+)
 from hbbft_tpu_torch.transport.framing import (
     KIND_HELLO,
     KIND_MSG,
@@ -37,6 +44,11 @@ from hbbft_tpu_torch.transport.transport import PeerStats, TcpTransport
 __all__ = [
     "ClusterNode",
     "LocalCluster",
+    "FaultInjector",
+    "FaultStats",
+    "LinkFaults",
+    "PartitionSpec",
+    "wan_profile",
     "KIND_HELLO",
     "KIND_MSG",
     "KIND_MSGB",

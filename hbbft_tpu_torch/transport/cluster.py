@@ -41,17 +41,16 @@ Untrusted-input policy at this layer: a frame whose payload fails
 (``cluster.bad_payload``) and dropped — framing-level violations
 already cost the sender its connection inside the transport.
 
-Copy of ``hbbft_tpu/transport/cluster.py`` for Python nodes.  Three
-things of the reference wait for later slices and raise a
-``ValueError`` naming their ``ROADMAP.md`` item instead of doing
-something else: ``node_impl="native"`` (the engine-per-node arm,
-Queue 1 item 3), ``byzantine=`` (the chaos strategies, Queue 1 item 2)
-and :meth:`LocalCluster.serve_obs` (the scrape server, Queue 1 item 2).
-Where the caller names no backend, a BLS cluster verifies on the card
-(``TorchBackend``, in each node, the in-process service or the service
-process), which raises with no card; the reference used the host's
-``BatchedBackend``.  The scalar suite, which has no device path, keeps
-``BatchedBackend``.
+Copy of ``hbbft_tpu/transport/cluster.py`` for Python nodes, with the
+reference's live Byzantine nodes (``byzantine=``, :mod:`hbbft_tpu_torch.
+chaos`) and scrape server (:meth:`LocalCluster.serve_obs`).  The
+reference's engine-per-node arm, ``node_impl="native"``, waits for the
+native engine and raises a ``ValueError`` naming its ``ROADMAP.md`` item
+(Queue 1 item 4).  Where the caller names no backend, a BLS cluster
+verifies on the card (``TorchBackend``, in each node, the in-process
+service or the service process), which raises with no card; the
+reference used the host's ``BatchedBackend``.  The scalar suite, which
+has no device path, keeps ``BatchedBackend``.
 """
 
 from __future__ import annotations
@@ -437,14 +436,35 @@ class LocalCluster:
                 f"BFT bound violated: need n >= 3*num_faulty + 1 "
                 f"(got n={n}, f={self.f})"
             )
-        # byzantine: the reference's live-socket adversary arms live in
-        # its chaos package, which this package does not have yet.
-        if byzantine:
+        # byzantine: {node_id: strategy} — those nodes run live-socket
+        # adversary arms (hbbft_tpu_torch.chaos) instead of honest ones.
+        # A strategy is a registry name ("crash-stop" | "equivocate" |
+        # "corrupt-share" | "stale-replay" | "flood"), a ByzantineStrategy
+        # instance, or a zero-arg factory.  Byzantine nodes spend the
+        # fault budget: more than f of them voids the oracle's
+        # guarantees, so that is rejected too.
+        self.byzantine: Dict[int, Any] = dict(byzantine or {})
+        for nid in self.byzantine:
+            if not (0 <= nid < n):
+                raise ValueError(f"byzantine id {nid} outside 0..{n - 1}")
+        if len(self.byzantine) > self.f:
             raise ValueError(
-                "byzantine= needs the chaos strategies (hbbft_tpu/chaos/), "
-                "not ported yet: ROADMAP.md Queue 1 item 2"
+                f"{len(self.byzantine)} Byzantine nodes exceed the fault "
+                f"budget f={self.f} (n={n})"
             )
-        self.byzantine: Dict[int, Any] = {}
+        if self.byzantine:
+            # Fail on a bad registry name HERE, not after n listeners
+            # and a stack of node threads exist (there is no stop()
+            # path for a half-built cluster).  Instances/factories are
+            # resolved per-bind in _make_node.
+            from hbbft_tpu_torch.chaos.strategies import STRATEGIES
+
+            for spec in self.byzantine.values():
+                if isinstance(spec, str) and spec not in STRATEGIES:
+                    raise ValueError(
+                        f"unknown Byzantine strategy {spec!r} "
+                        f"(known: {sorted(STRATEGIES)})"
+                    )
         self.suite = suite if suite is not None else ScalarSuite()
         self.cluster_id = cluster_id
         self.injector = injector
@@ -462,6 +482,7 @@ class LocalCluster:
         # a Prometheus poller must not re-pay it per request (stop()
         # invalidates, so end-of-run reads are exact).
         self._phase_cache: Optional[Tuple[float, Dict[str, Any]]] = None
+        self._obs_server: Any = None
         # node_impl: "python" (ClusterNode above), or a {node_id: impl}
         # mapping.  The reference's "native" arm (an engine per node)
         # comes with the native engine.
@@ -474,7 +495,7 @@ class LocalCluster:
                 raise ValueError(
                     "node_impl='native' needs the native engine "
                     "(hbbft_tpu/transport/native_node.py), not ported yet: "
-                    "ROADMAP.md Queue 1 item 3"
+                    "ROADMAP.md Queue 1 item 4"
                 )
             if impl != "python":
                 raise ValueError(f"unknown node_impl {impl!r} (python)")
@@ -671,7 +692,7 @@ class LocalCluster:
                 if self.crypto in ("service", "service-proc")
                 else self._backend_factory(self.suite)
             )
-        return ClusterNode(
+        node = ClusterNode(
             node_id=i,
             netinfo=netinfo,
             all_ids=list(range(self.n)),
@@ -682,6 +703,22 @@ class LocalCluster:
             protocol_factory=self._factory,
             trace=self.traces[i],
         )
+        spec = self.byzantine.get(i)
+        if spec is not None:
+            # restart() re-enters here, so a reborn Byzantine node gets
+            # its strategy re-armed with fresh per-bind state
+            from hbbft_tpu_torch.chaos.nodes import install_byzantine
+
+            node = install_byzantine(
+                node,
+                spec,
+                seed=self.seed,
+                suite=self.suite,
+                cluster_id=self.cluster_id,
+                peer_addrs={j: a for j, a in self.addr_map.items() if j != i},
+                impl=self._impl_for(i),
+            )
+        return node
 
     # -- lifecycle -----------------------------------------------------
     def start(self) -> None:
@@ -693,6 +730,9 @@ class LocalCluster:
         self._started = True
 
     def stop(self) -> None:
+        if self._obs_server is not None:
+            self._obs_server.stop()
+            self._obs_server = None
         for node in self.nodes.values():
             node.stop()
             node.transport.stop()
@@ -913,12 +953,14 @@ class LocalCluster:
         return path
 
     def serve_obs(self, host: str = "127.0.0.1", port: int = 0) -> Any:
-        """The reference's live scrape server (``/metrics``,
-        ``/trace.json``, ``/healthz``); not ported yet."""
-        raise ValueError(
-            "serve_obs needs the scrape server (hbbft_tpu/obs/server.py), "
-            "not ported yet: ROADMAP.md Queue 1 item 2"
-        )
+        """Start (or return) the live scrape server (``/metrics``,
+        ``/trace.json``, ``/healthz``, ``/diag``) — usable mid-run;
+        stopped by :meth:`stop`."""
+        if self._obs_server is None:
+            from hbbft_tpu_torch.obs.server import ObsServer
+
+            self._obs_server = ObsServer(self, host=host, port=port).start()
+        return self._obs_server
 
     def transport_stats(self) -> Dict[int, Dict[Any, Dict[str, int]]]:
         return {i: node.transport.stats() for i, node in self.nodes.items()}

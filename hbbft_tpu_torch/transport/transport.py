@@ -56,9 +56,9 @@ received byte goes through a :class:`FrameDecoder` capped at
 both).  A frame error never crashes the node: the connection is
 dropped, the fault is counted, and reconnect recovers.
 
-Copy of ``hbbft_tpu/transport/transport.py``.  The fault injector
-(``transport/faults.py``) is not ported yet; the duck-typed ``injector``
-hook stays as in the reference.  The reference's environment A/B
+Copy of ``hbbft_tpu/transport/transport.py``.  The ``injector`` hook
+takes the port's :class:`~hbbft_tpu_torch.transport.faults.FaultInjector`
+(or anything with its ``start``/``on_send``).  The reference's environment A/B
 switches and its native-engine hooks are left out: vectored egress is
 on wherever ``socket.sendmsg`` exists, and coalescing is the
 ``coalesce=`` constructor argument.

@@ -9,8 +9,8 @@ arrival times over live sockets, so a dissenting arm is re-run a bounded
 number of times, as ``tests/test_cryptoplane.py`` does: a wrong verdict
 diverges on every run and no rerun hides it.  The service arms route
 every share check through the shared service (flushes > 0) with no
-fallback.  What the port does not have yet raises, naming its
-``ROADMAP.md`` item.
+fallback.  What the port does not have yet (the native engine's node
+arm) raises, naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -106,9 +106,9 @@ def test_keys_and_netinfo_match_the_reference():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(node_impl="native"), "Queue 1 item 3"),
-    (dict(node_impl={0: "python", 1: "native"}), "Queue 1 item 3"),
-    (dict(byzantine={3: "corrupt-share"}), "Queue 1 item 2"),
+    (dict(node_impl="native"), "Queue 1 item 4"),
+    (dict(node_impl={0: "python", 1: "native"}), "Queue 1 item 4"),
+    (dict(byzantine={3: "corrupt-share"}, node_impl={3: "native"}), "Queue 1 item 4"),
 ])
 def test_unported_arguments_raise(kwargs, item):
     with pytest.raises(ValueError, match=item):
@@ -116,12 +116,35 @@ def test_unported_arguments_raise(kwargs, item):
 
 
 def test_serve_obs_raises():
+    """``serve_obs`` answers on a live cluster, returns the same server on
+    a second call and is closed by ``stop()``; on a port another listener
+    holds it raises ``OSError``."""
+    import json
+    import socket
+    import urllib.request
+
     c = LocalCluster(4, seed=0)
     try:
-        with pytest.raises(ValueError, match="Queue 1 item 2"):
-            c.serve_obs()
+        c.start()
+        srv = c.serve_obs()
+        assert c.serve_obs() is srv
+        url = f"http://127.0.0.1:{srv.port}/healthz"
+        health = json.loads(urllib.request.urlopen(url, timeout=10).read())
+        assert health["ok"] and sorted(health["nodes"]) == ["0", "1", "2", "3"]
     finally:
         c.stop()
+    with pytest.raises(OSError):
+        urllib.request.urlopen(url, timeout=5)
+    holder = socket.socket()
+    holder.bind(("127.0.0.1", 0))
+    holder.listen(1)
+    c = LocalCluster(4, seed=0)
+    try:
+        with pytest.raises(OSError):
+            c.serve_obs(port=holder.getsockname()[1])
+    finally:
+        c.stop()
+        holder.close()
 
 
 def test_cluster_size_and_crypto_arm_validation():

@@ -187,6 +187,46 @@ def test_device_backend_flush_error_propagates():
     svc.stop()
 
 
+class _RaisingBackend(CryptoBackend):
+    """A backend whose every flush raises."""
+
+    def verify_batch(self, reqs):
+        raise RuntimeError("flush failed")
+
+
+@pytest.mark.parametrize("mode", ["host-only", "device"])
+def test_hybrid_backend_behind_the_service(mode):
+    """``HybridBackend`` behind the service: host-only
+    (``device=NO_DEVICE``) with a raising host fails the flush over to the
+    client's fallback, as the reference's service does for a host backend;
+    with a device backend that raises, the error reaches the client as
+    ``DeviceFlushError`` with no fallback."""
+    from hbbft_tpu_torch.crypto.device.backend import HybridBackend
+
+    suite, good, bad = _scalar_fixture()
+    if mode == "host-only":
+        be = HybridBackend(suite, device=HybridBackend.NO_DEVICE, host=_RaisingBackend())
+    else:
+        raising = _RaisingBackend()
+        raising.on_device = True
+        be = HybridBackend(suite, min_device_batch=1, device=raising,
+                           host=BatchedBackend(suite))
+    assert be.on_device is (mode == "device")
+    svc = CryptoPlaneService(be, window_s=0.0).start()
+    client = svc.client(EagerBackend(suite))
+    try:
+        if mode == "host-only":
+            assert client.verify_batch([good, bad]) == [True, False]
+            assert svc.metrics.counters["crypto.fallbacks"] == 1
+        else:
+            with pytest.raises(DeviceFlushError):
+                client.verify_batch([good, bad])
+            assert svc.metrics.counters.get("crypto.fallbacks", 0) == 0
+        assert svc.metrics.counters["crypto.flush_errors"] == 1
+    finally:
+        svc.stop()
+
+
 def test_lazy_start_on_first_submit():
     suite, good, _ = _scalar_fixture()
     svc = CryptoPlaneService(BatchedBackend(suite), window_s=0.0)

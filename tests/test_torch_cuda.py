@@ -425,3 +425,60 @@ def test_bls_cluster_defaults_to_the_card(cuda):
         assert isinstance(be, TorchBackend) and be.device.type == "cuda"
     finally:
         c.stop()
+
+
+def test_corrupt_share_cluster_on_card_matches_host(cuda):
+    """``chip_smoke.py`` phase 7 (b) at N = 4: a live BLS cluster whose node
+    3 sends corrupt COIN and DECRYPT shares, every share check merged by
+    the service into ``TorchBackend`` flushes on the card.  The card
+    rejects only node 3's shares, by bisection, and every flush that holds
+    a rejected share gives the host ``BatchedBackend``'s verdicts; the
+    honest nodes agree and accuse only node 3."""
+    from hbbft_tpu_torch.chaos import ChaosOracle, fault_entries
+    from hbbft_tpu_torch.cryptoplane import CryptoPlaneService
+    from hbbft_tpu_torch.transport import LocalCluster
+
+    suite = BLSSuite()
+    backend = TorchBackend(suite, device=cuda)
+    backend.load_kernels()
+    flushes = []
+    card_verify = backend.verify_batch
+
+    def logged(reqs):
+        reqs = list(reqs)
+        out = card_verify(reqs)
+        flushes.append((reqs, list(out)))
+        return out
+
+    backend.verify_batch = logged
+    service = CryptoPlaneService(backend, window_s=0.002)
+    build.reset_launches()
+    c = LocalCluster(4, seed=0, suite=suite, crypto="service", crypto_service=service,
+                     byzantine={3: "corrupt-share"})
+    try:
+        c.start()
+        oracle = ChaosOracle(c)
+        oracle.assert_progress(extra=2, timeout_s=600)
+        assert oracle.assert_safety() >= 2
+        assert oracle.assert_attribution() > 0
+        accused = {s for i in oracle.honest_ids for s, _ in fault_entries(c.nodes[i])}
+        m = c.merged_metrics(fresh=True)
+        signer3 = c.nodes[0].netinfo.public_key_share(3).to_bytes()
+    finally:
+        c.stop()
+        service.stop()
+    assert accused == {3}
+    assert m.counters.get("chaos.tampered_shares", 0) > 0
+    for key in ("crypto.fallbacks", "crypto.flush_errors", "cluster.handler_errors"):
+        assert m.counters.get(key, 0) == 0, key
+    bad = [k for k, (_, out) in enumerate(flushes) if not all(out)]
+    assert bad
+    for k in bad:
+        reqs, out = flushes[k]
+        assert all(r.kind != "ciphertext" and r.payload[0].to_bytes() == signer3
+                   for r, ok in zip(reqs, out) if not ok)
+    host = BatchedBackend(suite)
+    for k in bad[:3]:
+        reqs, out = flushes[k]
+        assert host.verify_batch(reqs) == out
+    assert all(build.LAUNCHES[k] >= len(flushes) for k in dpair.KERNELS)

@@ -201,6 +201,23 @@ def test_crypto_plane_modules_are_checked_above():
     assert want <= mods, sorted(want - mods)
 
 
+def test_traffic_and_chaos_modules_are_checked_above():
+    """The traffic plane's, the fault injector's, the scrape server's and
+    the chaos plane's modules, and the cluster example, are among those
+    the fresh interpreter above imports, so none of them loads ``jax`` or
+    the JAX package."""
+    mods = set(_port_modules())
+    want = {
+        "hbbft_tpu_torch.transport.faults", "hbbft_tpu_torch.traffic.clients",
+        "hbbft_tpu_torch.traffic.mempool", "hbbft_tpu_torch.traffic.driver",
+        "hbbft_tpu_torch.obs.server", "hbbft_tpu_torch.chaos",
+        "hbbft_tpu_torch.chaos.strategies", "hbbft_tpu_torch.chaos.nodes",
+        "hbbft_tpu_torch.chaos.oracle", "hbbft_tpu_torch.chaos.scheduler",
+        "hbbft_tpu_torch.examples.cluster",
+    }
+    assert want <= mods, sorted(want - mods)
+
+
 def test_crypto_plane_entry_points_refuse_without_a_card():
     """``HybridBackend()`` and a sharded ``TorchBackend`` raise with no
     card; a service worker asked for the torch backend on ``cuda``, or a
@@ -240,6 +257,20 @@ def test_crypto_plane_entry_points_refuse_without_a_card():
 def test_crypto_plane_module_imports_first(mod):
     """Each entry module of the crypto plane is importable as the first
     import of a fresh interpreter (no circular import)."""
+    res = _run(f"import {mod}\nprint('OK')\n")
+    assert res.returncode == 0, res.stderr
+    assert "OK" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("mod", [
+    "hbbft_tpu_torch.transport.faults", "hbbft_tpu_torch.traffic",
+    "hbbft_tpu_torch.traffic.driver", "hbbft_tpu_torch.obs.server",
+    "hbbft_tpu_torch.chaos", "hbbft_tpu_torch.chaos.nodes",
+    "hbbft_tpu_torch.chaos.scheduler", "hbbft_tpu_torch.examples.cluster",
+])
+def test_traffic_and_chaos_module_imports_first(mod):
+    """Each module of the traffic and chaos planes is importable as the
+    first import of a fresh interpreter (no circular import)."""
     res = _run(f"import {mod}\nprint('OK')\n")
     assert res.returncode == 0, res.stderr
     assert "OK" in res.stdout, res.stdout
