@@ -8,7 +8,9 @@ Phases (any failure raises and the script exits nonzero):
 
 0. setup: the card's name and power limit, torch version, and the
    build of every hand-written CUDA kernel (one ``nvcc`` per source, all
-   started together: keccak, fq, scan, pair);
+   started together: keccak, fq, scan, pair), with the host C++ of
+   ``hbbft_tpu_torch/csrc/native/`` (the protocol engine and the host
+   data plane, ``g++``) built beside them;
 1. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, with its time, the plain version's time and the
    least time the card could take (its bound): the Keccak sponge kernel
@@ -93,7 +95,18 @@ Phases (any failure raises and the script exits nonzero):
    garbage) under open-loop traffic homed on the honest nodes:
    ``ChaosOracle.check_all()`` (safety, progress, exactly-once,
    attribution), the corrupt shares rejected on the card by bisection and
-   only they, the first 4 flushes holding one held against the host.
+   only they, the first 4 flushes holding one held against the host;
+8. the native engine: native-bls-16, BASELINE config 3's fused stack
+   (``benchmarks/config3_native_bls.py`` as the reference's battery ran
+   it, 64 transactions): ``NativeQhbNet(16, seed=0, batch_size=256,
+   num_faulty=0, flush_every=0)`` over BLS, the whole network's message
+   loop in the C++ engine, every verify flush of its per-node pools
+   handed to ``TorchBackend`` on the card, run until every node has
+   committed all 64: every transaction on all 16 nodes, the batches
+   alike, no fault, the flush counts equal to the reference's at the
+   same seed, the scan and pair kernels launched on every flush, the
+   first 4 flushes held against the host ``BatchedBackend``, with the
+   epoch walls, the backend's stages and the device's busy share.
 
 The last three lines are one JSON object with every kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.  With no CUDA card, or
@@ -2277,6 +2290,135 @@ def phase_traffic(card: str, runs: list, deadline: float) -> dict:
     return launches
 
 
+# native-bls-16's flush counts and deliveries at seed 0 (BASELINE config 3,
+# benchmarks/config3_native_bls.py with 64 transactions): the reference's
+# battery gave them on its TPU host (BATTERY_r04.jsonl, BATTERY_r05.jsonl,
+# hybrid backend), and the reference gives them again on a CPU with its
+# host BatchedBackend (BENCH_BACKEND=batched BENCH_TXNS=64).  Verdicts are
+# pure, so the counts follow from the protocol and the seed alone.
+NATIVE_BLS_16_FLUSH_STATS = {"flushes": 352, "requests": 22_832, "backend_requests": 1_520,
+                             "max_batch": 240}
+NATIVE_BLS_16_DELIVERED = 100_000
+
+
+def _config3_run(backend, suite, n_txns: int = 64, on_epoch=None):
+    """``benchmarks/config3_native_bls.py``'s run on the port's engine:
+    16 validators, all correct, batch 256, deferred flushes, the
+    transactions of ``random.Random(7)`` round-robin, run in chunks of
+    5,000 deliveries until every node has committed all of them.  Returns
+    (net, transactions, epoch walls)."""
+    from hbbft_tpu_torch.native_engine import NativeQhbNet
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input
+
+    n = 16
+    nat = NativeQhbNet(n, seed=0, batch_size=256, num_faulty=0, session_id=b"config3-bls",
+                       suite=suite, backend=backend, flush_every=0)
+    rng = random.Random(7)
+    txns = [rng.randbytes(16) for _ in range(n_txns)]
+    for i, txn in enumerate(txns):
+        nat.send_input(i % n, Input.user(txn))
+    want = set(txns)
+    walls = []
+    last = time.perf_counter()
+    while not all(want <= _native_committed(nat, i) for i in nat.correct_ids):
+        prev = len(nat.nodes[0].outputs)
+        nat.run_until(lambda e, w=prev + 1: all(len(e.nodes[i].outputs) >= w
+                                                for i in e.correct_ids), chunk=5000)
+        now = time.perf_counter()
+        walls.append(now - last)
+        last = now
+        if on_epoch is not None:
+            on_epoch(nat, walls[-1], len(_native_committed(nat, 0) & want))
+    return nat, txns, walls
+
+
+def _native_committed(nat, nid: int) -> set:
+    return {t for b in nat.nodes[nid].outputs for _, c in b.contributions
+            if isinstance(c, (list, tuple)) for t in c}
+
+
+def phase_native(card: str) -> dict:
+    """Phase 8, native-bls-16: BASELINE config 3's fused stack on the card
+    (module docstring).  Returns the kernels' launches over the run, the
+    counts set to 0 just before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+    from hbbft_tpu_torch.utils import serde
+
+    suite = BLSSuite()
+    flush_kernels = (*dscan.KERNELS, *dpair.KERNELS)
+    be, stats, rec, warm_s = _service_backend(suite, "native-bls-16")
+    # Each flush's own launches: the engine hands a flush to the backend
+    # only when it holds a request not verified before.
+    per_flush = []
+    logged = be.verify_batch
+
+    def counted(reqs):
+        before = {k: build.LAUNCHES.get(k, 0) for k in flush_kernels}
+        out = logged(reqs)
+        per_flush.append({k: build.LAUNCHES.get(k, 0) - before[k] for k in flush_kernels})
+        return out
+
+    be.verify_batch = counted
+
+    def on_epoch(nat, wall, committed):
+        log(f"native-bls-16 epoch {nat.nodes[0].outputs[-1].epoch}: {wall:.3f} s wall, "
+            f"{committed} of 64 transactions committed, {nat.delivered} deliveries  [{card}]")
+
+    build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nat, txns, walls = _config3_run(be, suite, on_epoch=on_epoch)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    busy_us, share = _busy_share(prof, run_s)
+
+    want = set(txns)
+    missing = [i for i in range(16) if not want <= _native_committed(nat, i)]
+    if missing or nat.correct_ids != list(range(16)):
+        raise AssertionError(f"native-bls-16: nodes {missing} lack a transaction")
+    streams = {serde.dumps([(b.era, b.epoch, b.contributions) for b in nat.nodes[i].outputs])
+               for i in range(16)}
+    if len(streams) != 1:
+        raise AssertionError("native-bls-16: the nodes' batches differ")
+    faults = {i: nat.faults(i) for i in range(16) if nat.faults(i)}
+    if faults:
+        raise AssertionError(f"native-bls-16: faults recorded: {faults}")
+    if nat.flush_stats != NATIVE_BLS_16_FLUSH_STATS or nat.delivered != NATIVE_BLS_16_DELIVERED:
+        raise AssertionError(f"native-bls-16: flush_stats {nat.flush_stats}, delivered "
+                             f"{nat.delivered} != the reference's {NATIVE_BLS_16_FLUSH_STATS}, "
+                             f"{NATIVE_BLS_16_DELIVERED}")
+    bare = [k for k, got in enumerate(per_flush) if any(got[name] < 1 for name in flush_kernels)]
+    if bare or len(per_flush) != len(rec.flushes):
+        raise AssertionError(f"native-bls-16: flushes {bare[:5]} launched no "
+                             f"{flush_kernels} ({len(per_flush)} flushes)")
+    verdicts = rec.verdicts()
+    if not all(verdicts):
+        raise AssertionError(f"native-bls-16: {verdicts.count(False)} verdicts False")
+    held = 4
+    host_s = _host_check(suite, rec, held, "native-bls-16")
+    sizes = rec.sizes()
+    delivered = nat.delivered
+    nat.close()
+    log(f"native-bls-16: 16 validators, 64 tx, BLS, the C++ engine's message loop: all 64 "
+        f"committed alike on all 16 nodes in {len(walls)} epochs, no fault; {run_s:.3f} s wall "
+        f"under torch.profiler, epoch walls {[round(w, 3) for w in walls]} s; "
+        f"{delivered} deliveries; flush_stats {json.dumps(nat.flush_stats)} == the reference's "
+        f"at seed 0; "
+        f"{len(sizes)} TorchBackend flushes, {sum(sizes)} requests, largest {max(sizes)}, median "
+        f"{statistics.median(sizes)}; scan and pair kernels on every flush; first {held} "
+        f"flushes == BatchedBackend (host, {host_s:.2f} s); kernels warm {warm_s:.1f} s  [{card}]")
+    log(f"native-bls-16 {_stage_line(stats, rec.seconds)}; device busy {busy_us:.0f} us of "
+        f"{run_s * 1e6:.0f} us = {share}  [{card}]")
+    log(f"native-bls-16 launches: {json.dumps(launches, sort_keys=True)}")
+    return launches
+
+
 def _requests() -> tuple:
     """The flush's workloads, built on the host: the suite, firehose-10240
     and mixed-512 with its bad indices."""
@@ -2316,9 +2458,16 @@ def main() -> int:
     from hbbft_tpu_torch import build
 
     log(f"device free memory before any kernel: {free_mib():.0f} MiB")
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    build.build_all(["keccak", "fq", "scan", "pair"], verbose=True)
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        # The host C++ (g++) beside the kernels' nvcc processes: its own lock.
+        host = pool.submit(lambda: [build.build_host("engine", 4), build.build_host("native"),
+                                    time.perf_counter() - t0][-1])
+        build.build_all(["keccak", "fq", "scan", "pair"], verbose=True)
+        log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+        log(f"host C++ (engine, data plane) built in {host.result():.1f} s")
     # Phase 7 from here on, beside phases 1-6.  Each main path's launches,
     # its counts set to 0 just before it; a kernel's "launches" is their sum.
     traffic = start_phase_traffic(card)
@@ -2331,6 +2480,9 @@ def main() -> int:
         kernels += phase_pair(card, firehose, mixed, bad)
         log(f"phase 1 {time.perf_counter() - t0:.1f} s  [{card}]")
         paths = _phases_2_to_6(card, suite, firehose, mixed, bad)
+        t0 = time.perf_counter()
+        paths["native"] = phase_native(card)
+        log(f"phase 8 {time.perf_counter() - t0:.1f} s  [{card}]")
         paths["traffic"] = phase_traffic(card, traffic, t_start + TRAFFIC_DEADLINE_S)
     finally:
         stop_phase_traffic(traffic)

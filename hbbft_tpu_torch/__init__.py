@@ -8,7 +8,9 @@ protocol stack, from ``Broadcast`` and ``BinaryAgreement`` through
 ``QueueingHoneyBadger`` to ``SenderQueue``, with the reference's wire
 tags and its simulation example (``examples/simulation.py``), and the
 crypto plane: a TCP cluster runtime (``transport/``) whose nodes' share
-checks one shared service (``cryptoplane/``) merges into flushes.  The device
+checks one shared service (``cryptoplane/``) merges into flushes, and the
+native engine (``native_engine.py`` over the C++ of ``csrc/native/``,
+built with g++) with its cluster nodes and process-per-node runtime.  The device
 modules live under ``crypto/device`` (the BLS share-verification flush)
 and ``ops/device`` (the reliable-broadcast data plane), with the
 hand-written CUDA kernels in ``csrc/``.

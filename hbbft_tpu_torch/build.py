@@ -10,6 +10,12 @@ anew and an unchanged one is reused.  Nothing here runs at import time.
 Every wrapper that launches a kernel adds one to :data:`LAUNCHES` under
 the kernel's name, and nowhere else, so a run can show which kernels its
 path went through.
+
+The host C++ of ``csrc/native/`` (the protocol engine and the host data
+plane) is built here too, with ``g++`` (:func:`build_host`): one engine
+library per NodeSet width (``-DHBE_WORDS=w``), ``field_ifma.cpp`` alone
+compiled with ``-mavx512ifma`` where the compiler takes it, each output
+named by the hash of its sources and flags, at first use.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import re
@@ -63,8 +70,14 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 def sources(name: str) -> List[Path]:
     """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
     or through another header, in a fixed order."""
+    return _with_includes(CSRC / f"{name}.cu")
+
+
+def _with_includes(main: Path) -> List[Path]:
+    """``main`` and every header of its folder it includes, directly or
+    through another header: ``main`` first, then the headers sorted."""
     seen: List[Path] = []
-    todo = [CSRC / f"{name}.cu"]
+    todo = [main]
     while todo:
         path = todo.pop()
         if path in seen:
@@ -89,11 +102,13 @@ def _nvcc_cmd(name: str, out: Path, extra: List[str]) -> List[str]:
 
 
 @contextlib.contextmanager
-def _build_lock():
+def _build_lock(name: str = ".lock"):
     """An exclusive lock on the build directory, held across processes
     (a crypto-service worker and its parent may both load the kernels):
-    one process builds, the other then finds the libraries built."""
-    with open(BUILD_DIR / ".lock", "w") as fh:
+    one process builds, the other then finds the libraries built.  The
+    host C++ builds take a lock file of their own, so a host build and
+    the ``nvcc`` builds can run side by side."""
+    with open(BUILD_DIR / name, "w") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         try:
             yield
@@ -140,6 +155,94 @@ def _compile(paths: Dict[str, Path], extra: List[str], verbose: bool) -> None:
         os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+# -- host C++ (csrc/native/) -----------------------------------------------
+
+NATIVE = CSRC / "native"
+GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
+IFMA_FLAGS = ("-mavx512ifma",)
+
+
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host C++ of csrc/native/ needs a C++ compiler")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def _gxx_takes(flags: tuple) -> bool:
+    """Whether g++ accepts ``flags`` on an empty input (the feature gate
+    of the AVX-512 IFMA arm; without it ``field_ifma.cpp`` compiles its
+    scalar stub)."""
+    try:
+        subprocess.run([gxx_path(), *flags, "-x", "c++", "-c", os.devnull, "-o", os.devnull],
+                       check=True, capture_output=True, timeout=60)
+        return True
+    except (subprocess.SubprocessError, OSError):
+        return False
+
+
+def _host_steps(name: str, words: int) -> List[List[str]]:
+    """The compile steps of library ``name`` (``"engine"`` or
+    ``"native"``), each a g++ argument list without its output path;
+    the last links the shared library."""
+    if name == "native":
+        return [[*GXX_FLAGS, "-shared", "-pthread", str(NATIVE / "hbbft_native.cpp")]]
+    if name != "engine":
+        raise ValueError(f"no host library {name!r}")
+    ifma = list(IFMA_FLAGS) if _gxx_takes(IFMA_FLAGS) else []
+    return [
+        [*GXX_FLAGS, "-c", *ifma, str(NATIVE / "field_ifma.cpp")],
+        [*GXX_FLAGS, "-shared", "-pthread", f"-DHBE_WORDS={words}",
+         str(NATIVE / "engine.cpp")],
+    ]
+
+
+def host_library_path(name: str, words: int = 4) -> Path:
+    """Where :func:`build_host` puts library ``name``: the hash covers
+    every source and header it compiles and every flag."""
+    steps = _host_steps(name, words)
+    h = hashlib.sha256(repr(steps).encode())
+    mains = ["hbbft_native.cpp"] if name == "native" else ["field_ifma.cpp", "engine.cpp"]
+    for main in mains:
+        for path in _with_includes(NATIVE / main):
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
+    tag = f"engine_w{words}" if name == "engine" else "native"
+    return BUILD_DIR / f"libhbbft_{tag}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str, words: int = 4, timeout: float = 600.0) -> Path:
+    """Build host library ``name`` from ``csrc/native/`` unless it is
+    built already, and return its path.  Raises ``RuntimeError`` with the
+    compiler's output when a step fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = host_library_path(name, words)
+    if so.exists():
+        return so
+    with _build_lock(".host.lock"):
+        if so.exists():
+            return so
+        steps = _host_steps(name, words)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        objs: List[str] = []
+        for i, step in enumerate(steps):
+            last = i == len(steps) - 1
+            out = tmp if last else so.with_suffix(f".{i}.{os.getpid()}.o")
+            cmd = [gxx_path(), *step, *(objs if last else []), "-o", str(out)]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"host build of {name} failed: g++ exited {proc.returncode}\n"
+                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                )
+            if not last:
+                objs.append(str(out))
+        for obj in objs:
+            os.unlink(obj)
+        os.replace(tmp, so)
+    return so
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,7 +7,7 @@ seeded scenario scheduler composing Byzantine strategies with link
 faults and kill/restart churn, and safety/liveness oracles over the
 honest side.
 
-Copy of ``hbbft_tpu/chaos/`` for Python nodes.
+Copy of ``hbbft_tpu/chaos/``, both node arms.
 """
 
 from hbbft_tpu_torch.chaos.nodes import install_byzantine

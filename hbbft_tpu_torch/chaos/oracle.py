@@ -17,8 +17,10 @@ built with a ``byzantine`` map:
   :class:`~hbbft_tpu_torch.traffic.driver.TrafficDriver`);
 * **attribution** — honest fault logs name ONLY Byzantine ids: the
   evidence channel never frames an honest node
-  (``assert_attribution``), read through one :func:`fault_entries`
-  view.
+  (``assert_attribution``).  Both node arms are read — the Python
+  node's ``Step.fault_log`` entries and the native node's engine fault
+  vector (``hbe_fault_subject``/``hbe_fault_kind``) — through one
+  :func:`fault_entries` view.
 
 Attribution caveat: injected frame *duplication* (``dup_p``) makes
 honest peers deliver duplicates, which some protocol layers log as
@@ -26,8 +28,7 @@ faults against the (honest) sender.  Chaos schedules therefore compose
 with dup-free link shapes (``wan``); put duplication on Byzantine
 links only if attribution is being asserted.
 
-Copy of ``hbbft_tpu/chaos/oracle.py`` for Python nodes (the reference's
-:func:`fault_entries` also reads its native engine's fault vector).
+Copy of ``hbbft_tpu/chaos/oracle.py``.
 """
 
 from __future__ import annotations
@@ -57,7 +58,10 @@ def batches_sha(cluster: Any, nid: int, upto: Optional[int] = None) -> str:
 
 
 def fault_entries(node: Any) -> List[Tuple[Any, str]]:
-    """(subject, kind) fault entries of one cluster node."""
+    """(subject, kind) fault entries of one cluster node, either arm."""
+    eng = getattr(node, "engine", None)
+    if eng is not None:  # native arm: the engine's fault vector
+        return eng.faults(node.id)
     return [(f.node_id, f.kind) for f in node.faults]
 
 

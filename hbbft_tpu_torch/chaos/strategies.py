@@ -2,9 +2,16 @@
 
 Every strategy operates at the WIRE boundary of one cluster node — the
 serde-encoded ``SqMessage`` payloads the node hands its (untouched)
-:class:`~hbbft_tpu_torch.transport.transport.TcpTransport` — by wrapping
-that transport's ``send`` and ``send_many``
-(:func:`hbbft_tpu_torch.chaos.nodes.install_byzantine`).
+:class:`~hbbft_tpu_torch.transport.transport.TcpTransport` — so one strategy
+implementation serves both ``node_impl`` arms: the Python node's
+per-message ``transport.send`` and the native node's batched
+``transport.send_many`` are wrapped identically
+(:func:`hbbft_tpu_torch.chaos.nodes.install_byzantine`).  The one exception
+is the corrupt-share sender on the NATIVE arm, which reuses the
+engine's tamper hooks (``hbe_set_tamper`` / ``hbe_set_tampered``, the
+round-7 :class:`~hbbft_tpu_torch.net.adversary.TamperingAdversary` mirror)
+so the rewrite happens before the C encoder, exactly like the
+in-process tampering runs.
 
 The strategy catalog:
 
@@ -42,10 +49,7 @@ ever called from that node's protocol thread.  All mutable state is
 created in :meth:`ByzantineStrategy.bind` so a restarted node re-arms
 from a clean slate.
 
-Copy of ``hbbft_tpu/chaos/strategies.py`` for Python nodes: the
-reference's native-engine tamper hook (``native_tamper`` and
-``CorruptShareSender.native_tamper_cb``) waits for the native engine
-(ROADMAP.md Queue 1).
+Copy of ``hbbft_tpu/chaos/strategies.py``.
 """
 
 from __future__ import annotations
@@ -141,6 +145,9 @@ class ByzantineStrategy:
     """Base: an honest node (identity mapping on egress)."""
 
     name = "byzantine"
+    #: True = on the native arm, install the engine tamper hooks
+    #: instead of the wire-level wrapper (corrupt-share only).
+    native_tamper = False
 
     def bind(self, ctx: StrategyContext) -> None:
         """(Re)arm against one node instance; all mutable state is
@@ -229,11 +236,16 @@ class Equivocator(ByzantineStrategy):
 class CorruptShareSender(ByzantineStrategy):
     """Wrong-but-well-formed COIN/DECRYPT shares with probability
     ``tamper_p`` per logical message — the TamperingAdversary share
-    mutations (doubled scalar/point), applied at the wire boundary.  All
-    peers see the SAME corrupt share, so honest fault logs must converge
-    on this sender."""
+    mutations (doubled scalar/point), applied at the wire boundary on
+    the Python arm and through the engine tamper hooks on the native
+    arm (``native_tamper``).  All peers see the SAME corrupt share, so
+    honest fault logs must converge on this sender."""
 
     name = "corrupt-share"
+    native_tamper = True
+
+    #: engine MsgType values (csrc/native/engine.cpp): BA_COIN / HB_DECRYPT
+    _MT_COIN, _MT_DECRYPT = 8, 10
 
     def __init__(self, tamper_p: float = 0.5) -> None:
         self.tamper_p = tamper_p
@@ -253,6 +265,40 @@ class CorruptShareSender(ByzantineStrategy):
                 self.ctx.metrics.count("chaos.tampered_shares")
         v = self._variants[payload]
         return ((dest, v if v is not None else payload),)
+
+    def native_tamper_cb(self, engine: Any):
+        """Build the engine tamper callback (shares are 32-byte
+        big-endian scalars — NativeNodeEngine is scalar-suite-only by
+        contract, so the ``ln != 32`` guard below is defensive, not a
+        reachable silent no-op; the rewrite is the sanitizer driver's
+        ``2*s mod r``).  Must never raise across ctypes."""
+        import ctypes
+
+        lib, h = engine.lib, engine.handle
+        rng = self.ctx.rng
+        mod = engine._suite.scalar_modulus
+        metrics = self.ctx.metrics
+
+        def cb(sender, mtype, era, epoch, proposer, rnd):
+            try:
+                if mtype not in (self._MT_COIN, self._MT_DECRYPT):
+                    return
+                if rng.random() >= self.tamper_p:
+                    return
+                ln = int(lib.hbe_tamper_share_len(h))
+                if ln != 32:
+                    return
+                buf = (ctypes.c_uint8 * 32)()
+                lib.hbe_tamper_share(h, buf)
+                s = int.from_bytes(bytes(buf), "big")
+                out = (2 * s % mod).to_bytes(32, "big")
+                ob = (ctypes.c_uint8 * 32).from_buffer_copy(out)
+                lib.hbe_tamper_set_share(h, ob, 32)
+                metrics.count("chaos.tampered_shares")
+            except Exception:  # pragma: no cover - defensive
+                metrics.count("chaos.strategy_errors")
+
+        return cb
 
 
 class StaleReplayer(ByzantineStrategy):

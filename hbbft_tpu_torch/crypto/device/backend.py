@@ -58,7 +58,7 @@ from hbbft_tpu_torch.crypto.device import scan as dscan
 from hbbft_tpu_torch.device import DeviceLike, resolve
 from hbbft_tpu_torch.utils import canonical_bytes
 
-DEFAULT_CHUNK = 2048  # the reference's HBBFT_TPU_CHUNK default; untuned here
+DEFAULT_CHUNK = 2048  # the reference backend's chunk default; untuned here
 
 def scan_stage(
     g1_pts, g1_bits, g1_chk, seg, g1_sub,

@@ -1,0 +1,6719 @@
+// Copy of native/engine.cpp for the PyTorch port (hbbft_tpu_torch), built by
+// hbbft_tpu_torch/build.py.  Its edits, each listed here; the copy-drift
+// test (tests/test_torch_native_copy.py) holds the copy to its original
+// with these edits and no other:
+//   1. Every name that began HBBFT_TPU and an underscore begins HBBFT_TORCH_
+//      instead: the environment knobs and the comments that name them.
+//   2. The reference's numbered work-item tags are taken out of comments.
+//   3. A device flush that fails stops the run at that flush: the
+//      verify callback calls hbe_abort, after which no verdict of that
+//      flush is acted on, no further flush or delivery runs, and hbe_run
+//      and hbe_flush return (Engine::aborted, hbe_abort, and the checks
+//      in engine_flush_ext, engine_flush_ext_node, engine_run and
+//      hbe_flush).  Every line this adds carries the tag [port].
+//   4. The comment above hbe_words no longer names the reference's
+//      pre-built library override, which the port does not have.
+// ---- end of the port's header ----
+// Native protocol-plane engine: the HoneyBadger message loop in C++.
+//
+// Reference behavior: the reference runs its entire consensus stack as
+// native (Rust) code; this engine is the equivalent for the
+// message-intensive layers — Broadcast, SBV/BinaryAgreement (with the
+// ThresholdSign common coin), ThresholdDecrypt, Subset and the
+// HoneyBadger epoch loop — for a whole simulated network of nodes with
+// a FIFO delivery queue (the VirtualNet crank loop, upstream
+// ``tests/net/mod.rs``).  Python keeps the layers that are per-BATCH
+// rather than per-message: DynamicHoneyBadger votes / DKG / era logic,
+// QueueingHoneyBadger sampling, contribution serde and threshold
+// encryption (via callbacks at batch boundaries).
+//
+// FIDELITY CONTRACT: every handler is a faithful port of the Python
+// implementation in hbbft_tpu/protocols/* (same thresholds, same fault
+// kinds, same message emission order, same buffering rules, same
+// deferred-verify pool semantics with an eager flush), over the
+// scalar-insecure suite (hbbft_tpu/crypto/suite.py) — so a run of this
+// engine commits byte-identical batches to the pure-Python VirtualNet
+// at the same seed.  tests/test_native_engine.py pins this equivalence.
+//
+// Crypto here is the SCALAR test suite only (additive Z_r, trivial
+// discrete logs — protocol-plane benchmarking); real BLS runs use the
+// Python/TPU path.  C ABI only (ctypes); no exceptions cross the
+// boundary.
+
+#include <algorithm>
+#include <cassert>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <deque>
+#include <functional>
+#include <map>
+#include <memory>
+#include <atomic>
+#include <mutex>
+#include <string>
+#include <thread>
+#include <type_traits>
+#include <vector>
+
+#include "field_plane.h"
+#include "sha3_gf.h"
+#include "sha3_plane.h"
+#include <chrono>
+
+namespace {
+
+// Portable cycle/tick source for the delivery profiling counters
+// (rdtsc on x86; steady_clock elsewhere so non-x86 builds still work).
+inline uint64_t prof_tick() {
+#if defined(__x86_64__) || defined(__i386__)
+  return __builtin_ia32_rdtsc();
+#else
+  return (uint64_t)std::chrono::steady_clock::now().time_since_epoch().count();
+#endif
+}
+
+}  // namespace
+
+namespace {
+
+// ===========================================================================
+// 256-bit arithmetic mod r (BLS12-381 scalar field order)
+//
+// The primitive implementations live in native/field_plane.h (round 15):
+// the shared scalar Montgomery core plus the dispatched batch kernels
+// (AVX-512 IFMA arm in native/field_ifma.cpp, HBBFT_TORCH_SIMD switch).
+// The U256 wrappers below keep the engine's historical names.
+// ===========================================================================
+
+struct U256 {
+  uint64_t w[4];  // little-endian words
+  bool operator==(const U256& o) const {
+    return std::memcmp(w, o.w, sizeof(w)) == 0;
+  }
+};
+
+const U256 U256_ZERO = {{0, 0, 0, 0}};
+
+// r = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
+const U256 R_MOD = {{0xFFFFFFFF00000001ULL, 0x53BDA402FFFE5BFEULL,
+                     0x3339D80809A1D805ULL, 0x73EDA753299D7D48ULL}};
+// r - 1
+const U256 R_MINUS_1 = {{0xFFFFFFFF00000000ULL, 0x53BDA402FFFE5BFEULL,
+                         0x3339D80809A1D805ULL, 0x73EDA753299D7D48ULL}};
+
+inline int u256_cmp(const U256& a, const U256& b) {
+  return hbf::cmp4(a.w, b.w);
+}
+
+inline bool u256_is_zero(const U256& a) { return hbf::is_zero4(a.w); }
+
+// a + b with carry out (no reduction)
+inline uint64_t u256_add_raw(const U256& a, const U256& b, U256& out) {
+  return hbf::add4_raw(a.w, b.w, out.w);
+}
+
+// a - b with borrow out
+inline uint64_t u256_sub_raw(const U256& a, const U256& b, U256& out) {
+  return hbf::sub4_raw(a.w, b.w, out.w);
+}
+
+inline U256 addmod(const U256& a, const U256& b) {
+  U256 o;
+  hbf::addmod4(a.w, b.w, o.w);
+  return o;
+}
+
+inline U256 submod(const U256& a, const U256& b) {
+  U256 o;
+  hbf::submod4(a.w, b.w, o.w);
+  return o;
+}
+
+// Montgomery machinery (field_plane.h): engine state stays CANONICAL at
+// rest, but every batch loop runs in the Montgomery domain end-to-end
+// and converts once at its boundaries (round 15) — the classic two-REDC
+// mulmod below is for one-shot call sites only.
+
+// REDC: given T (8 words, value < r * 2^256), returns T * 2^-256 mod r.
+inline U256 redc(const uint64_t t_in[8]) {
+  U256 o;
+  hbf::redc256(t_in, o.w);
+  return o;
+}
+
+inline void u256_mul_raw(const U256& a, const U256& b, uint64_t out[8]) {
+  hbf::mul4_raw(a.w, b.w, out);
+}
+
+inline U256 mulmod(const U256& a, const U256& b) {
+  U256 o;
+  hbf::mulmod4(a.w, b.w, o.w);
+  return o;
+}
+
+// One-REDC Montgomery product a*b*2^-256 (canonical; one side < r).
+inline U256 mont_mul(const U256& a, const U256& b) {
+  U256 o;
+  hbf::mont_mul4(a.w, b.w, o.w);
+  return o;
+}
+
+inline U256 to_mont(const U256& a) {
+  U256 o;
+  hbf::to_mont4(a.w, o.w);
+  return o;
+}
+
+inline U256 from_mont(const U256& a) {
+  U256 o;
+  hbf::from_mont4(a.w, o.w);
+  return o;
+}
+
+// 2^256 mod r — the field plane's copy is the source of truth (the
+// deliberate-duplication COMDAT rule covers field_ifma.cpp only).
+const U256 ONE_MONT = {{hbf::ONE_M256[0], hbf::ONE_M256[1],
+                        hbf::ONE_M256[2], hbf::ONE_M256[3]}};
+
+inline U256 invmod(const U256& a) {
+  // Fermat a^(r-2), run inside the Montgomery domain (one REDC per
+  // ladder step instead of the classic ladder's two).
+  U256 am = to_mont(a), im;
+  hbf::mont_inv4(am.w, im.w);
+  return from_mont(im);
+}
+
+inline void u256_to_be32(const U256& a, uint8_t out[32]) {
+  for (int i = 0; i < 4; ++i) {
+    uint64_t w = a.w[3 - i];
+    for (int j = 0; j < 8; ++j) out[i * 8 + j] = (uint8_t)(w >> (56 - 8 * j));
+  }
+}
+
+inline U256 u256_from_be(const uint8_t* in, size_t len) {
+  U256 out = U256_ZERO;
+  // take the last min(len,32) bytes, big-endian
+  size_t take = len > 32 ? 32 : len;
+  const uint8_t* p = in + (len - take);
+  for (size_t i = 0; i < take; ++i) {
+    size_t bit_pos = (take - 1 - i) * 8;
+    out.w[bit_pos / 64] |= (uint64_t)p[i] << (bit_pos % 64);
+  }
+  return out;
+}
+
+// ===========================================================================
+// canonical_bytes hashing + scalar-suite primitives
+// (mirrors hbbft_tpu/utils/__init__.py and crypto/suite.py exactly)
+// ===========================================================================
+
+using Bytes = std::string;  // byte strings
+// Big payloads (RBC values, HB plaintexts, serde ciphertexts) are
+// shared, never copied: at an era change a single DKG-epoch payload
+// is several hundred KB and flows through decode-cache -> Bcast ->
+// Subset -> ThresholdDecrypt -> batch; per-stage copies at N=64 were
+// gigabytes of memcpy (round-3 era profile).
+using BytesP = std::shared_ptr<const Bytes>;
+
+inline void canon_part(hbn::Sha3& h, const uint8_t* data, size_t len) {
+  uint8_t len8[8];
+  for (int i = 0; i < 8; ++i) len8[i] = (uint8_t)(len >> (56 - 8 * i));
+  h.update(len8, 8);
+  h.update(data, len);
+}
+
+inline void canon_part(hbn::Sha3& h, const Bytes& b) {
+  canon_part(h, (const uint8_t*)b.data(), b.size());
+}
+
+inline Bytes canon_int_bytes(uint64_t v) {
+  // Python canonical_bytes int: minimal big-endian, >= 1 byte.
+  Bytes out;
+  int nbytes = 1;
+  for (uint64_t t = v; t > 0xFF; t >>= 8) ++nbytes;
+  out.resize(nbytes);
+  for (int i = 0; i < nbytes; ++i)
+    out[i] = (char)(uint8_t)(v >> (8 * (nbytes - 1 - i)));
+  return out;
+}
+
+// Append a length-prefixed part to a byte string (canonical_bytes builder).
+inline void canon_append(Bytes& out, const Bytes& part) {
+  uint8_t len8[8];
+  uint64_t len = part.size();
+  for (int i = 0; i < 8; ++i) len8[i] = (uint8_t)(len >> (56 - 8 * i));
+  out.append((const char*)len8, 8);
+  out.append(part);
+}
+
+inline Bytes canon2(const Bytes& a, const Bytes& b) {
+  Bytes out;
+  canon_append(out, a);
+  canon_append(out, b);
+  return out;
+}
+
+inline Bytes canon3(const Bytes& a, const Bytes& b, const Bytes& c) {
+  Bytes out;
+  canon_append(out, a);
+  canon_append(out, b);
+  canon_append(out, c);
+  return out;
+}
+
+// ScalarSuite.hash_to_g2: sha3(canonical(b"h2g2", data)) % (r-1) + 1.
+// One (often very long — the DKG ciphertext digest) message: the sha3
+// plane's single-message path, counted but never lane-parallel.
+inline U256 hash_to_g2(const Bytes& data) {
+  Bytes buf = canon2("h2g2", data);
+  uint8_t digest[32];
+  hbs::sha3_256_one((const uint8_t*)buf.data(), buf.size(), digest);
+  U256 v = u256_from_be(digest, 32);
+  // v mod (r-1): v < 2^256 < 3(r-1), so at most two subtractions.
+  while (u256_cmp(v, R_MINUS_1) >= 0) {
+    U256 t;
+    u256_sub_raw(v, R_MINUS_1, t);
+    v = t;
+  }
+  return addmod(v, {{1, 0, 0, 0}});  // +1, still < r
+}
+
+// Signature.parity(): sha3(sig 32B BE)[0] & 1
+inline bool sig_parity(const U256& sig) {
+  uint8_t be[32], digest[32];
+  u256_to_be32(sig, be);
+  hbn::sha3_256(be, 32, digest);
+  return digest[0] & 1;
+}
+
+// kdf_stream(seed, n): sha3(seed || ctr 8B BE) blocks.  The blocks are
+// independent equal-length messages, so the whole stream is one sha3
+// plane batch: the counter messages are staged contiguously and the
+// digests land directly in the output layout (32 bytes per block).
+// Stream bytes are identical to the old per-block loop — same messages,
+// same digests, same order.
+inline Bytes kdf_stream(const Bytes& seed, size_t n) {
+  size_t nblocks = (n + 31) / 32;
+  if (!nblocks) return Bytes();
+  size_t msg_len = seed.size() + 8;
+  std::vector<uint8_t> stage(nblocks * msg_len);
+  for (size_t ctr = 0; ctr < nblocks; ++ctr) {
+    uint8_t* m = stage.data() + ctr * msg_len;
+    std::memcpy(m, seed.data(), seed.size());
+    for (int i = 0; i < 8; ++i)
+      m[seed.size() + i] = (uint8_t)((uint64_t)ctr >> (56 - 8 * i));
+  }
+  Bytes out;
+  out.resize(nblocks * 32);
+  hbs::sha3_256_batch(stage.data(), msg_len, nblocks, (uint8_t*)&out[0]);
+  out.resize(n);
+  return out;
+}
+
+// Lagrange coefficients at 0 for x_i = i+1 over the given indices
+// (mirrors hbbft_tpu/crypto/poly.py lagrange_coefficients).  Cached by
+// index set: every node combining the same (FIFO-typical) first-t+1
+// index set otherwise pays the modular inverse + O(k^2) mulmods again —
+// the single hottest share of the N=64 era-change combines.
+inline std::shared_ptr<const std::vector<U256>> lagrange_cached(
+    const std::vector<int>& idxs);
+
+inline std::vector<U256> lagrange(const std::vector<int>& idxs) {
+  // Round 15: the whole computation runs in the Montgomery domain
+  // (field_plane.h) — one REDC per product instead of the classic
+  // two — and the O(k^2) denominator half goes through the dispatched
+  // batch kernel (8-lane IFMA when available).  Outputs are the exact
+  // canonical coefficients the classic form produced (the domain map
+  // x -> x*2^256 is a ring isomorphism; every value converts back at
+  // the boundary), so lagrange_cached entries stay arm-independent.
+  size_t k = idxs.size();
+  std::vector<U256> coeffs(k);
+  std::vector<int64_t> xs64(k);
+  for (size_t i = 0; i < k; ++i) xs64[i] = idxs[i] + 1;
+  std::vector<U256> dens(k);
+  hbf::lagrange_dens(xs64.data(), k, dens.empty() ? nullptr : dens[0].w);
+  // nums via prefix/suffix products: num_i = Π_{j!=i} x_j in O(k)
+  // (the old per-i inner loop was half the O(k^2) mulmods of a miss —
+  // at t+1 = 100 a cache miss was ~2.7M cycles, round-7 combine
+  // profile).
+  std::vector<U256> xs_m(k), nums_m(k);
+  for (size_t i = 0; i < k; ++i) {
+    U256 x = {{(uint64_t)xs64[i], 0, 0, 0}};
+    xs_m[i] = to_mont(x);
+  }
+  {
+    std::vector<U256> pre(k + 1), suf(k + 1);
+    pre[0] = ONE_MONT;
+    suf[k] = ONE_MONT;
+    for (size_t i = 0; i < k; ++i) pre[i + 1] = mont_mul(pre[i], xs_m[i]);
+    for (size_t i = k; i-- > 0;) suf[i] = mont_mul(suf[i + 1], xs_m[i]);
+    for (size_t i = 0; i < k; ++i) nums_m[i] = mont_mul(pre[i], suf[i + 1]);
+  }
+  // batch inversion (one Fermat ladder for every denominator)
+  std::vector<U256> dens_m(k), prefix(k + 1);
+  for (size_t i = 0; i < k; ++i) dens_m[i] = to_mont(dens[i]);
+  prefix[0] = ONE_MONT;
+  for (size_t i = 0; i < k; ++i) prefix[i + 1] = mont_mul(prefix[i], dens_m[i]);
+  U256 inv_acc;
+  hbf::mont_inv4(prefix[k].w, inv_acc.w);
+  for (size_t i = k; i-- > 0;) {
+    U256 d_inv = mont_mul(inv_acc, prefix[i]);
+    inv_acc = mont_mul(inv_acc, dens_m[i]);
+    coeffs[i] = from_mont(mont_mul(nums_m[i], d_inv));
+  }
+  return coeffs;
+}
+
+inline std::shared_ptr<const std::vector<U256>> lagrange_cached(
+    const std::vector<int>& idxs) {
+  // Returns a shared_ptr under a mutex: multicore workers share this
+  // cache, and a raw reference could be invalidated by a concurrent
+  // eviction.  The round-6 by-value form closed that hole with a full
+  // t+1-scalar copy per COMBINE (~3 KB alloc+copy on the per-epoch
+  // coin path — measurable in the round-7 combine profile); the
+  // shared_ptr keeps eviction-safety without the copy.
+  static std::mutex mu;
+  static std::map<std::vector<int>,
+                  std::shared_ptr<const std::vector<U256>>> cache;
+  static std::deque<std::vector<int>> order;
+  std::lock_guard<std::mutex> lk(mu);
+  auto it = cache.find(idxs);
+  if (it == cache.end()) {
+    if (cache.size() > 4096) {
+      cache.erase(order.front());
+      order.pop_front();
+    }
+    it = cache.emplace(
+               idxs,
+               std::make_shared<const std::vector<U256>>(lagrange(idxs)))
+             .first;
+    order.push_back(idxs);
+  }
+  return it->second;
+}
+
+// ===========================================================================
+// Minimal serde decode for a scalar-suite Ciphertext
+// (mirrors hbbft_tpu/utils/serde.py + wire.py for the "ct" struct ONLY)
+// ===========================================================================
+
+struct ScalarCiphertext {
+  U256 u, w;
+  Bytes v;
+};
+
+struct SerdeReader {
+  const uint8_t* data;
+  size_t len, pos = 0;
+  bool fail = false;
+  uint8_t u8() {
+    if (pos + 1 > len) {
+      fail = true;
+      return 0;
+    }
+    return data[pos++];
+  }
+  uint32_t u32() {
+    if (pos + 4 > len) {
+      fail = true;
+      return 0;
+    }
+    uint32_t v = ((uint32_t)data[pos] << 24) | ((uint32_t)data[pos + 1] << 16) |
+                 ((uint32_t)data[pos + 2] << 8) | data[pos + 3];
+    pos += 4;
+    return v;
+  }
+  const uint8_t* take(size_t n) {
+    if (pos + n > len) {
+      fail = true;
+      return nullptr;
+    }
+    const uint8_t* p = data + pos;
+    pos += n;
+    return p;
+  }
+};
+
+const char kScalarSuiteName[] = "scalar-insecure";
+
+inline bool read_group_scalar(SerdeReader& r, U256& out) {
+  if (r.u8() != 0x11) return false;  // GROUP tag
+  uint8_t nlen = r.u8();
+  const uint8_t* name = r.take(nlen);
+  if (r.fail || nlen != sizeof(kScalarSuiteName) - 1 ||
+      std::memcmp(name, kScalarSuiteName, nlen) != 0)
+    return false;
+  uint8_t group = r.u8();
+  if (group != 1 && group != 2) return false;
+  uint32_t plen = r.u32();
+  const uint8_t* payload = r.take(plen);
+  if (r.fail || plen != 32) return false;
+  out = u256_from_be(payload, 32);
+  return u256_cmp(out, R_MOD) < 0;
+}
+
+// Full-strictness parse of serde.dumps(Ciphertext(u, v, w, ScalarSuite())).
+inline bool decode_scalar_ciphertext(const uint8_t* data, size_t len,
+                                     ScalarCiphertext& out) {
+  SerdeReader r{data, len};
+  if (r.u8() != 0x10) return false;  // STRUCT
+  uint8_t nlen = r.u8();
+  const uint8_t* name = r.take(nlen);
+  if (r.fail || nlen != 2 || std::memcmp(name, "ct", 2) != 0) return false;
+  if (r.u8() != 0x06) return false;  // fields tuple
+  if (r.u32() != 4) return false;
+  // field 0: suite name string
+  if (r.u8() != 0x05) return false;
+  uint32_t slen = r.u32();
+  const uint8_t* sname = r.take(slen);
+  if (r.fail || slen != sizeof(kScalarSuiteName) - 1 ||
+      std::memcmp(sname, kScalarSuiteName, slen) != 0)
+    return false;
+  if (!read_group_scalar(r, out.u)) return false;  // field 1: u
+  if (r.u8() != 0x04) return false;                // field 2: v bytes
+  uint32_t vlen = r.u32();
+  const uint8_t* v = r.take(vlen);
+  if (r.fail) return false;
+  out.v.assign((const char*)v, vlen);
+  if (!read_group_scalar(r, out.w)) return false;  // field 3: w
+  return !r.fail && r.pos == r.len;
+}
+
+// Ciphertext hash input: canonical(b"ct", u.to_bytes(), v)   [keys.py]
+inline U256 ct_hash_scalar(const ScalarCiphertext& ct) {
+  uint8_t u_be[32];
+  u256_to_be32(ct.u, u_be);
+  Bytes buf;
+  canon_append(buf, "ct");
+  canon_append(buf, Bytes((const char*)u_be, 32));
+  canon_append(buf, ct.v);
+  return hash_to_g2(buf);
+}
+
+// ===========================================================================
+// Messages, routing, faults
+// ===========================================================================
+
+// Fixed-width POD node bitset.  The word count is a COMPILE-TIME
+// parameter: the Python loader builds one shared library per width
+// (libhbbft_engine_w{4,8,16,...}.so, -DHBE_WORDS=N) and picks the
+// smallest that fits the network, so the common <= 256-node range keeps
+// the 4-word set's exact cost (a heap-spill variant measured ~30%
+// slower on the N=32 era change — NodeSet is copied in every hot
+// threshold path) while larger networks get wider sets instead of a
+// hard cap (round-3 VERDICT item #4).
+#ifndef HBE_WORDS
+#define HBE_WORDS 4
+#endif
+
+const int MAX_NODES = 64 * HBE_WORDS;
+
+struct NodeSet {
+  uint64_t w[HBE_WORDS] = {};
+  void add(int i) { w[i >> 6] |= 1ULL << (i & 63); }
+  void clear(int i) { w[i >> 6] &= ~(1ULL << (i & 63)); }
+  bool has(int i) const { return (w[i >> 6] >> (i & 63)) & 1; }
+  int count() const {
+    int c = 0;
+    for (int i = 0; i < HBE_WORDS; ++i) c += __builtin_popcountll(w[i]);
+    return c;
+  }
+  NodeSet operator|(const NodeSet& o) const {
+    NodeSet r;
+    for (int i = 0; i < HBE_WORDS; ++i) r.w[i] = w[i] | o.w[i];
+    return r;
+  }
+};
+
+using Root = std::array<uint8_t, 32>;
+
+struct ProofData {
+  Bytes value;
+  int index;
+  std::vector<Root> path;
+  Root root;
+  // Validation memo: proofs are SHARED (one object rides the queue to
+  // every destination and is re-forwarded by echos), and validity is a
+  // pure function of (object, n_leaves) — so the whole network pays
+  // the Merkle hashing once instead of N times.
+  mutable int8_t valid_memo = -1;  // -1 unknown, else verdict
+  mutable int valid_n = 0;         // n_leaves the memo was computed for
+};
+
+enum MsgType : uint8_t {
+  BC_VALUE,
+  BC_ECHO,
+  BC_READY,
+  BC_ECHO_HASH,
+  BC_CAN_DECODE,
+  BA_BVAL,
+  BA_AUX,
+  BA_CONF,
+  BA_COIN,
+  BA_TERM,
+  HB_DECRYPT,
+};
+
+// Flattened envelope: the engine knows the whole stack, so one struct
+// replaces DhbMessage(HbMessage(SubsetMessage(AbaMessage(...)))).
+struct EMsg {
+  int32_t era = 0;
+  int32_t epoch = 0;
+  int32_t proposer = 0;  // subset proposer / decrypt proposer
+  int32_t round = 0;     // BA round
+  MsgType type = BA_BVAL;
+  uint8_t bval = 0;  // bool for BVAL/AUX/TERM; BoolSet mask for CONF
+  U256 share = U256_ZERO;  // BA_COIN sig share / HB_DECRYPT share (scalar mode)
+  std::shared_ptr<const Bytes> share_b;  // same, external-crypto mode (opaque)
+  std::shared_ptr<const ProofData> proof;  // BC_VALUE / BC_ECHO
+  Root root{};                             // BC_READY / ECHO_HASH / CAN_DECODE
+};
+
+// One queue entry per (sender, dest); broadcasts share ONE EMsg across
+// all destinations (N-1 copies of a ~112-byte struct with two
+// refcounted pointers otherwise dominate queue memory and copy time at
+// large N — the N=300 startup flood alone queues ~10M items).
+struct QItem {
+  int32_t sender, dest;
+  std::shared_ptr<const EMsg> msg;
+};
+
+// Fault kinds — identical strings to the Python modules.
+const char* F_SBV_DUP_BVAL = "sbv:duplicate-bval";
+const char* F_SBV_DUP_AUX = "sbv:duplicate-aux";
+const char* F_BA_DUP_CONF = "binary_agreement:duplicate-conf";
+const char* F_BA_DUP_TERM = "binary_agreement:duplicate-term";
+const char* F_TS_INVALID = "threshold_sign:invalid-share";
+const char* F_TS_NONVAL = "threshold_sign:non-validator";
+const char* F_TS_DUP = "threshold_sign:duplicate-share";
+const char* F_TD_INVALID = "threshold_decrypt:invalid-share";
+const char* F_TD_NONVAL = "threshold_decrypt:non-validator";
+const char* F_TD_DUP = "threshold_decrypt:duplicate-share";
+const char* F_BC_INVALID_PROOF = "broadcast:invalid-proof";
+const char* F_BC_WRONG_INDEX = "broadcast:wrong-shard-index";
+const char* F_BC_NOT_PROPOSER = "broadcast:value-from-non-proposer";
+const char* F_BC_MULTI_VALUE = "broadcast:multiple-values";
+const char* F_BC_DUP = "broadcast:duplicate-message";
+const char* F_BC_BAD_ENC = "broadcast:root-mismatch-after-decode";
+const char* F_HB_FUTURE = "honey_badger:message-beyond-max-future-epochs";
+const char* F_HB_FLOOD = "honey_badger:future-epoch-flood";
+const char* F_HB_BAD_CT = "honey_badger:invalid-ciphertext";
+const char* F_HB_BAD_CONTRIB = "honey_badger:undecodable-contribution";
+const char* F_DHB_FUTURE_ERA = "dynamic_honey_badger:message-beyond-next-era";
+const char* F_SS_UNKNOWN = "subset:unknown-proposer";
+
+struct Fault {
+  int32_t subject;
+  const char* kind;
+};
+
+// ===========================================================================
+// Forward decls + engine-level context
+// ===========================================================================
+
+struct Node;
+struct Engine;
+
+// sorted-by-str(id) order for batch contribution tuples
+// (honey_badger._try_batch sorts by str(proposer)).
+inline std::vector<int> str_sorted(std::vector<int> ids) {
+  std::sort(ids.begin(), ids.end(), [](int a, int b) {
+    return std::to_string(a) < std::to_string(b);
+  });
+  return ids;
+}
+
+// ===========================================================================
+// Epoch-state arena
+//
+// Per-epoch protocol state used to live in std::maps (echo/ready/share
+// maps, future-message counters): at N=300 the slot-13 epoch-advance
+// stamp measured ~20 Gcyc/epoch of rb-tree teardown + reallocation, and
+// the delivery envelope at big N is dominated by dependent cache misses
+// chasing freshly allocated rb-tree nodes.  Every one of those maps is
+// keyed by an engine node id in [0, e.n) — so they become flat,
+// index-keyed arrays (FlatMap) carved from a per-NODE bump arena that
+// is recycled WHOLESALE at epoch advance: reset_for_epoch becomes a
+// watermark reset instead of an exhaustive per-container destructor
+// walk, and a whole epoch's lookups walk a handful of contiguous,
+// epoch-hot blocks.
+//
+// Identity argument (docs/INVARIANTS.md "epoch-state arena"): a
+// std::map<int, T> with keys restricted to [0, n) iterates in ascending
+// key order; a FlatMap iterates present indices 0..n-1 ascending — the
+// same sequence — and find/insert semantics are one-to-one, so every
+// converted container preserves the Python dict/Counter iteration
+// behavior the maps encoded.  HBBFT_TORCH_ARENA=0 (read at hbe_create)
+// keeps the same flat containers but FREES the blocks at every reset
+// instead of recycling them — a one-build A/B arm for the recycling
+// itself, byte-identical by construction.
+//
+// Lifetime rule: arena memory lives exactly one epoch.  Anything that
+// can outlive the epoch (Ts/Td continuations in Pending, batch
+// payloads, ProofData pinned by shared_ptr) stays on the normal heap;
+// FlatMap may only hold trivially-destructible values.  Under ASan the
+// recycled blocks are poisoned between epochs, so any cross-epoch read
+// through a stale pointer is a hard fault, not silent state bleed.
+// ===========================================================================
+
+#if defined(__SANITIZE_ADDRESS__)
+#define HBE_ARENA_ASAN 1
+#elif defined(__has_feature)
+#if __has_feature(address_sanitizer)
+#define HBE_ARENA_ASAN 1
+#endif
+#endif
+#ifdef HBE_ARENA_ASAN
+#include <sanitizer/asan_interface.h>
+#define HBE_ARENA_POISON(p, s) ASAN_POISON_MEMORY_REGION((p), (s))
+#define HBE_ARENA_UNPOISON(p, s) ASAN_UNPOISON_MEMORY_REGION((p), (s))
+#else
+#define HBE_ARENA_POISON(p, s) ((void)0)
+#define HBE_ARENA_UNPOISON(p, s) ((void)0)
+#endif
+
+struct EpochArena {
+  struct Block {
+    uint8_t* p;
+    size_t cap;
+  };
+  static const size_t BLOCK = 64 * 1024;
+  std::vector<Block> blocks;
+  size_t cur = 0;        // active block index
+  size_t off = 0;        // bump offset within the active block
+  size_t used = 0;       // bytes handed out since the last reset
+  size_t hwm = 0;        // max `used` over all epochs (hbe_arena_stats)
+  uint64_t resets = 0;
+
+  EpochArena() = default;
+  EpochArena(const EpochArena&) = delete;
+  EpochArena& operator=(const EpochArena&) = delete;
+  EpochArena(EpochArena&& o) noexcept { *this = std::move(o); }
+  EpochArena& operator=(EpochArena&& o) noexcept {
+    release();
+    blocks = std::move(o.blocks);
+    cur = o.cur;
+    off = o.off;
+    used = o.used;
+    hwm = o.hwm;
+    resets = o.resets;
+    o.blocks.clear();
+    o.cur = o.off = o.used = 0;
+    return *this;
+  }
+  ~EpochArena() { release(); }
+
+  uint8_t* alloc(size_t sz) {
+    sz = (sz + 15) & ~(size_t)15;
+    while (true) {
+      if (cur < blocks.size()) {
+        Block& b = blocks[cur];
+        if (off + sz <= b.cap) {
+          uint8_t* p = b.p + off;
+          off += sz;
+          used += sz;
+          HBE_ARENA_UNPOISON(p, sz);
+          return p;
+        }
+        // Advance past this block (its tail stays unused this epoch;
+        // `used` counts handed-out bytes, so the watermark is honest).
+        ++cur;
+        off = 0;
+        continue;
+      }
+      size_t cap = sz > BLOCK ? sz : BLOCK;
+      blocks.push_back({(uint8_t*)::malloc(cap), cap});
+    }
+  }
+
+  // Epoch boundary: one watermark reset.  recycle=1 keeps the blocks
+  // (poisoned under ASan); recycle=0 is the HBBFT_TORCH_ARENA=0 A/B arm
+  // (same containers, malloc-fresh blocks every epoch).
+  void reset(bool recycle) {
+    ++resets;
+    if (used > hwm) hwm = used;
+    if (recycle) {
+      for (Block& b : blocks) HBE_ARENA_POISON(b.p, b.cap);
+    } else {
+      release();
+    }
+    cur = 0;
+    off = 0;
+    used = 0;
+  }
+
+  void release() {
+    for (Block& b : blocks) {
+      HBE_ARENA_UNPOISON(b.p, b.cap);
+      ::free(b.p);
+    }
+    blocks.clear();
+  }
+};
+
+// Flat replacement for the per-epoch std::map<int, T> (keys are engine
+// node ids in [0, n)): a value array + presence bitmap carved lazily
+// from the epoch arena on first insert.  Ascending-index iteration ==
+// the map's ascending-key iteration (see the arena identity argument).
+// Values must be trivially destructible — the arena reset never runs
+// destructors (shared_ptr ownership lives elsewhere, e.g. the per-node
+// epoch_pins vector for ProofData).
+template <typename T>
+struct FlatMap {
+  static_assert(std::is_trivially_destructible<T>::value,
+                "arena-backed: reset runs no destructors");
+  T* v = nullptr;
+  uint64_t* present = nullptr;
+  int32_t cap = 0;
+  int32_t count = 0;
+
+  bool has(int k) const {
+    return v && ((present[(unsigned)k >> 6] >> ((unsigned)k & 63)) & 1);
+  }
+  T* find(int k) { return has(k) ? v + k : nullptr; }
+  const T* find(int k) const { return has(k) ? v + k : nullptr; }
+  bool empty() const { return count == 0; }
+  // operator[]-style access: carve on first touch, value-initialize on
+  // a fresh key (matching std::map's operator[]), return the slot.
+  T& ref(EpochArena& a, int n, int k) {
+    if (!v) {
+      size_t words = ((size_t)n + 63) / 64;
+      v = (T*)a.alloc(sizeof(T) * (size_t)n);
+      present = (uint64_t*)a.alloc(8 * words);
+      std::memset(present, 0, 8 * words);
+      cap = n;
+    }
+    uint64_t& w = present[(unsigned)k >> 6];
+    uint64_t bit = 1ULL << ((unsigned)k & 63);
+    if (!(w & bit)) {
+      w |= bit;
+      v[k] = T();
+      ++count;
+    }
+    return v[k];
+  }
+  // Mid-epoch clear (keeps the carve; e.g. ba_next_round's
+  // future_count): presence bits only — values are re-initialized on
+  // the next ref() of each key.
+  void clear() {
+    if (v) std::memset(present, 0, 8 * (((size_t)cap + 63) / 64));
+    count = 0;
+  }
+  // Epoch reset: forget the carve — the arena watermark reclaims the
+  // memory wholesale (this is the whole point: no per-field teardown).
+  void drop() {
+    v = nullptr;
+    present = nullptr;
+    cap = 0;
+    count = 0;
+  }
+};
+
+// ===========================================================================
+// SBV broadcast (sbv_broadcast.py)
+// ===========================================================================
+
+struct Sbv {
+  int n = 0, f = 0;
+  NodeSet bval_received[2], aux_received[2];
+  NodeSet termed_bval[2], termed_aux[2];
+  bool bval_sent[2] = {false, false};
+  bool aux_sent = false;
+  uint8_t bin_values = 0;  // BoolSet mask: 1 = False present, 2 = True
+  int last_output = -1;    // -1 = none yet, else BoolSet mask
+
+  Sbv() = default;
+  Sbv(int n_, int f_) : n(n_), f(f_) {}
+};
+
+// ===========================================================================
+// ThresholdSign (threshold_sign.py) — scalar suite
+// ===========================================================================
+
+struct Ts {
+  U256 doc_h;  // hash_to_g2(doc) (scalar mode)
+  // Open RLC group cursor (scalar deferred mode): pool index of this
+  // instance's leader Pending, valid iff grp_round == Node::pool_round
+  // (each flush swap-round opens fresh groups).  Ts/Td are PER-NODE
+  // objects, so these fields are worker-local under engine_run_mt.
+  uint64_t grp_round = 0;
+  int32_t grp_idx = -1;
+  Bytes doc;   // the signed document (external-crypto mode: hashed Python-side)
+  NodeSet seen;
+  std::vector<std::pair<int, U256>> verified;  // insertion order (scalar)
+  std::vector<std::pair<int, Bytes>> verified_b;  // same, external mode
+  NodeSet verified_set;
+  bool had_input = false;
+  bool terminated = false;
+  U256 signature = U256_ZERO;
+};
+
+// ===========================================================================
+// ThresholdDecrypt (threshold_decrypt.py) — scalar suite
+// ===========================================================================
+
+struct Td {
+  // Open RLC group cursor — see Ts::grp_round.
+  uint64_t grp_round = 0;
+  int32_t grp_idx = -1;
+  bool has_ct = false;
+  ScalarCiphertext ct;
+  U256 ct_h = U256_ZERO;  // hash_to_g2 of ct hash input
+  BytesP ct_payload;      // serde(Ciphertext) bytes (external-crypto mode)
+  bool ct_valid = false;
+  bool ciphertext_invalid = false;
+  std::vector<std::pair<int, U256>> buffered;  // arrival order (scalar)
+  std::vector<std::pair<int, U256>> verified;
+  std::vector<std::pair<int, Bytes>> buffered_b;  // same, external mode
+  std::vector<std::pair<int, Bytes>> verified_b;
+  NodeSet verified_set;
+  NodeSet seen;
+  bool terminated = false;
+  BytesP plaintext;
+};
+
+// ===========================================================================
+// Broadcast (broadcast.py)
+// ===========================================================================
+
+struct Bcast {
+  int proposer = -1;     // lint: not-reset (per-proposer config, assigned in hb_reset_state)
+  int data_shards = 0;   // lint: not-reset (per-proposer config, assigned in hb_reset_state)
+  // echos / echo_hashes / readys / can_decode: arena-backed flat maps
+  // keyed by sender id (ascending-index iteration preserves
+  // the old std::map ascending-key order everywhere these are walked).
+  // echos holds raw ProofData pointers — ownership is pinned for the
+  // epoch by Node::epoch_pins (arena values must stay trivially
+  // destructible).
+  FlatMap<const ProofData*> echos;
+  FlatMap<Root> echo_hashes;
+  FlatMap<Root> readys;
+  std::vector<Root> ready_root_order;  // first-seen order of distinct roots
+  FlatMap<Root> can_decode;
+  // Incremental per-root tallies (distinct roots stay O(1) in honest
+  // runs).  The maps above were walked on EVERY echo/ready delivery to
+  // recount — an O(N) rb-tree + ProofData pointer chase per message,
+  // O(N^3) network-wide, and the profiled bound past N=256.  Counts
+  // are derived data only; map/iteration semantics are unchanged.
+  std::vector<std::pair<Root, int>> echo_full_by_root;  // full-proof echos
+  std::vector<std::pair<Root, int>> echo_any_by_root;   // echos + echo_hashes
+  std::vector<std::pair<Root, int>> ready_by_root;
+
+  static int bump(std::vector<std::pair<Root, int>>& v, const Root& r) {
+    for (auto& kv : v)
+      if (kv.first == r) return ++kv.second;
+    v.push_back({r, 1});
+    return 1;
+  }
+  static int tally(const std::vector<std::pair<Root, int>>& v, const Root& r) {
+    for (auto& kv : v)
+      if (kv.first == r) return kv.second;
+    return 0;
+  }
+  bool can_decode_sent = false;
+  bool echo_sent = false;
+  bool ready_sent = false;
+  bool had_input = false;
+  bool terminated = false;
+  BytesP value;
+};
+
+// ===========================================================================
+// BinaryAgreement (binary_agreement.py)
+// ===========================================================================
+
+const int MAX_FUTURE_ROUNDS = 100;
+
+struct Ba {
+  Bytes session_id;  // lint: not-reset (per-epoch config, assigned in hb_reset_state)
+  int round = 0;
+  // Round-5 arena note: Sbv lives INLINE (value member) and Proposal
+  // holds Bcast/Ba inline below, so one epoch's per-proposer protocol
+  // state is a single contiguous proposals array instead of ~4 heap
+  // objects per proposer — the COIN/DECRYPT delivery envelope was
+  // measured mostly cache misses chasing that pointer web (BASELINE.md
+  // round 4).  Ts/Td stay shared_ptr: they escape into Pending, whose
+  // continuations can outlive the epoch (commit_events may destroy the
+  // EpochState mid-drain).
+  Sbv sbv;
+  bool conf_sent = false;
+  std::vector<std::pair<int, uint8_t>> confs;  // (sender, BoolSet) insertion order
+  NodeSet confs_set;
+  NodeSet term_confs;
+  std::shared_ptr<Ts> coin;
+  bool coin_requested = false;
+  int coin_value = -1;   // -1 unknown
+  int conf_vals = -1;    // -1 unknown, else BoolSet mask
+  int estimate = -1;     // -1 unset
+  NodeSet terms[2];
+  NodeSet term_senders;
+  std::vector<std::pair<int, EMsg>> future;
+  FlatMap<int32_t> future_count;  // per-sender future-buffer occupancy
+  int decision = -1;
+  bool terminated = false;
+};
+
+// ===========================================================================
+// Subset (subset.py) + HB epoch state (honey_badger.py)
+// ===========================================================================
+
+struct Proposal {
+  Bcast bc;
+  Ba ba;
+  BytesP value;
+  int decision = -1;  // -1 undecided
+  bool emitted = false;
+
+  // Reset-in-place for epoch-state reuse (round 5): the whole
+  // per-epoch protocol state is recycled instead of reallocated, so
+  // the proposals array (and its inner container capacities where the
+  // container keeps them) stays resident — the delivery envelope at
+  // big N is dominated by dependent cache misses chasing freshly
+  // allocated state (BASELINE.md round-4/5 profiles).  EVERY field of
+  // Bcast/Ba/Sbv/Proposal must be restored here; a missed field is
+  // cross-epoch contamination (the native equivalence suites pin this
+  // byte-for-byte against the Python net).  Arena-backed FlatMap
+  // fields are restored with .drop() — their storage is reclaimed by
+  // the single arena watermark reset in hb_reset_state.
+  void reset() {
+    bc.echos.drop();
+    bc.echo_hashes.drop();
+    bc.readys.drop();
+    bc.ready_root_order.clear();
+    bc.can_decode.drop();
+    bc.echo_full_by_root.clear();
+    bc.echo_any_by_root.clear();
+    bc.ready_by_root.clear();
+    bc.can_decode_sent = bc.echo_sent = bc.ready_sent = false;
+    bc.had_input = bc.terminated = false;
+    bc.value = nullptr;
+    ba.round = 0;
+    ba.sbv = Sbv();
+    ba.conf_sent = false;
+    ba.confs.clear();
+    ba.confs_set = NodeSet();
+    ba.term_confs = NodeSet();
+    ba.coin = nullptr;
+    ba.coin_requested = false;
+    ba.coin_value = -1;
+    ba.conf_vals = -1;
+    ba.estimate = -1;
+    ba.terms[0] = NodeSet();
+    ba.terms[1] = NodeSet();
+    ba.term_senders = NodeSet();
+    ba.future.clear();
+    ba.future_count.drop();
+    ba.decision = -1;
+    ba.terminated = false;
+    value = nullptr;
+    decision = -1;
+    emitted = false;
+  }
+};
+
+// A Subset output awaiting the honey-badger boundary (Python: outputs
+// accumulate in the Step until _on_subset_step processes them).
+struct SubsetOutItem {
+  bool done;
+  int proposer;
+  BytesP value;
+};
+
+struct EpochState {
+  int epoch = 0;          // lint: not-reset (advanced by hb_reset_state's caller)
+  bool encrypted = false; // lint: not-reset (recomputed per epoch in hb_reset_state)
+  Bytes subset_session;   // lint: not-reset (recomputed per epoch in hb_reset_state)
+  // lint: not-reset (each element reset via Proposal::reset in hb_reset_state)
+  std::vector<Proposal> proposals;  // indexed by proposer id
+  bool subset_done = false;
+  bool done_emitted = false;
+  bool subset_terminated = false;
+  // Flat by proposer id, presence = non-null (flat iteration
+  // 0..n-1 yields the same key set the maps did).  NOT arena-backed:
+  // Td escapes into Pending continuations that can outlive the epoch,
+  // and shared_ptr/BytesP need destructors the arena never runs —
+  // these vectors are sized once in hb_reset_state and nulled per
+  // epoch (a pointer sweep, not an rb-tree teardown).
+  std::vector<std::shared_ptr<Td>> decrypts;
+  std::vector<int> accepted_order;  // proposer ids in acceptance order
+  std::vector<BytesP> plaintexts;  // proposer -> decoded-ok plaintext marker
+  NodeSet decrypted;
+  NodeSet faulty_proposers;
+  bool proposed = false;
+  bool batch_emitted = false;
+  std::vector<SubsetOutItem> pending_outputs;
+  std::vector<std::pair<int, BytesP>> pending_payloads;  // all_at_end buffer
+
+  // Epoch-advance reset (see Proposal::reset): same fresh-state
+  // semantics as reallocating, but the object and its proposals array
+  // stay in place.
+  void reset_for_epoch() {
+    subset_done = done_emitted = subset_terminated = false;
+    for (auto& d : decrypts) d = nullptr;
+    accepted_order.clear();
+    for (auto& p : plaintexts) p = nullptr;
+    decrypted = NodeSet();
+    faulty_proposers = NodeSet();
+    proposed = batch_emitted = false;
+    pending_outputs.clear();
+    pending_payloads.clear();
+  }
+};
+
+struct BatchData {
+  int era, epoch;
+  std::vector<std::pair<int, BytesP>> contributions;  // str-sorted
+};
+
+const int FUTURE_BUFFER_FACTOR = 64;
+
+struct Hb {
+  Bytes session_id;  // canonical(dhb_session, era) — provided by Python
+  int epoch = 0;
+  int max_future_epochs = 3;
+  // EncryptionSchedule: kind 0 always, 1 never, 2 every_nth, 3 tick_tock
+  int sched_kind = 0;
+  int sched_n = 1;
+  // SubsetHandlingStrategy: 0 incremental, 1 all_at_end
+  int subset_handling = 0;
+  // INLINE and recycled (round 5): Node.hb and Hb.state used to be two
+  // heap hops in front of every delivery's state access — two dependent
+  // cache misses per message at big N, the measured bulk of the
+  // COIN-continuation envelope.
+  EpochState state;
+  // Future-epoch buffer as a ring of max_future_epochs+1 vectors
+  // indexed epoch % size (sized in hb_reset_state).  Safe
+  // because the insertion window is (epoch, epoch+max_future_epochs]
+  // — fewer epochs than slots, all distinct mod size — and hb_advance
+  // drains each slot exactly when the cursor reaches its epoch, so a
+  // slot never mixes two epochs' messages.
+  std::vector<std::vector<std::pair<int, EMsg>>> future;
+  // Per-sender future-buffer occupancy, flat by sender id (absent ==
+  // 0 under the old map semantics).  Survives epochs within an era
+  // (decremented on replay); fresh per era via `nd.hb = Hb()`.
+  std::vector<int32_t> future_per_sender;
+
+  bool encrypt_on(int e) const {
+    switch (sched_kind) {
+      case 0: return true;
+      case 1: return false;
+      case 2: return e % sched_n == 0;
+      default: return (e / sched_n) % 2 == 0;
+    }
+  }
+};
+
+// ===========================================================================
+// Node + Engine
+// ===========================================================================
+
+// One deferred verification (crypto.backend.VerifyRequest kinds).
+// External-crypto mode: the verdict comes from the Python verify-batch
+// callback at flush; scalar mode precomputes it at submission.
+enum VKind : uint8_t { VK_SIG = 0, VK_DEC = 1, VK_CT = 2 };
+
+struct VReq {
+  uint8_t kind = VK_SIG;
+  int32_t era = 0;
+  int32_t sender = -1;             // share sender (engine id); -1 for VK_CT
+  const Bytes* doc = nullptr;      // VK_SIG: signed document (owned by Ts,
+                                   // kept alive by the continuation's ref)
+  const Bytes* ct = nullptr;       // VK_DEC/VK_CT: serde ciphertext payload
+                                   // (owned by Td, kept alive likewise)
+  std::shared_ptr<const Bytes> share;  // VK_SIG/VK_DEC: wire share bytes
+};
+
+// One share of a submit-time RLC group (round 7, scalar deferred
+// mode): the leader Pending of a Ts/Td instance holds ALL of that
+// instance's shares for the current flush round as a CONTIGUOUS array
+// — the flush verifies and folds them with streaming reads instead of
+// sweeping one 200+-byte Pending per share through a cold pool (the
+// N=300 first-cut regression: the per-share round-trip's DRAM misses
+// cost more than the mulmods the RLC removed).
+struct RlcShare {
+  U256 share;
+  U256 pk;  // submit-time snapshot (Pending::pk note applies)
+  int32_t sender;
+  uint8_t ok;  // verdict, written by the flush's group check
+};
+
+// Flat continuation (round 4): COIN/DECRYPT deliveries dominated the
+// full-epoch cycle profile (~2.4k cycles each vs ~400 for BVAL/AUX),
+// largely the std::function continuation each pool entry heap-allocated
+// with ~9 captures.  A tagged struct + switch dispatch (pending_run)
+// keeps the same three continuation targets without the allocation.
+enum ContKind : uint8_t { CONT_TS = 0, CONT_TD_CT = 1, CONT_TD_SHARE = 2 };
+
+struct Pending {
+  bool need_verdict = false;  // true: external mode, verdict from flush cb
+  bool pre_ok = false;        // scalar mode: verdict computed at submit
+  bool rlc_defer = false;     // scalar RLC mode: verdict computed by the
+                              // flush's group pass (scalar_rlc_verdicts)
+  uint8_t cont = CONT_TS;
+  int32_t era = 0, epoch = 0, proposer = 0, rnd = 0, sender = -1;
+  VReq req;
+  std::shared_ptr<Ts> ts;    // CONT_TS (keeps req.doc alive)
+  std::shared_ptr<Td> td;    // CONT_TD_* (keeps req.ct alive)
+  U256 share = U256_ZERO;    // scalar-mode share
+  U256 pk = U256_ZERO;       // scalar RLC mode: sender's pk share,
+                             // SNAPSHOTTED at submit — an era restart
+                             // (batch cb) can replace node.pk_shares
+                             // before a deferred verdict runs, and the
+                             // verdict must use the submitting era's key
+                             // exactly like the old submit-time check
+  std::shared_ptr<const Bytes> share_b;  // ext-mode share
+  std::vector<RlcShare> grp;  // scalar deferred mode: the instance's
+                              // shares this flush round (leader only)
+};
+
+const int FUTURE_ERA_BUFFER = 4096;
+
+struct Node {
+  int id;
+  bool silent = false;   // crash-faulty / adversary-owned: consumes, never acts
+  bool tampered = false; // Byzantine: runs the real algorithm, but every
+                         // outgoing message is offered to the tamper
+                         // callback (net/adversary.py TamperingAdversary)
+  bool has_share = false;
+  U256 sk_share = U256_ZERO;              // threshold share (scalar)
+  std::vector<U256> pk_shares;            // commitment eval, BY ENGINE ID
+  // Era validator set (NetworkInfo): sorted ids, id -> index (or -1).
+  std::vector<int> val_ids;
+  std::vector<int> val_index;
+  int era_n = 0, era_f = 0;
+  int era = 0;
+  Hb hb;                // inline (see Hb.state note); valid iff hb_init
+  bool hb_init = false;
+  // Per-epoch bump arena backing the FlatMap state above:
+  // ONE watermark reset per epoch advance (hb_reset_state) replaces
+  // the per-container teardown walk.  epoch_pins owns the ProofData
+  // objects whose raw pointers live in Bcast::echos for the epoch.
+  EpochArena arena;
+  std::vector<std::shared_ptr<const ProofData>> epoch_pins;
+  std::vector<Pending> pool;
+  bool pool_dirty = false;  // queued in Engine::dirty_nodes (deferred mode)
+  uint64_t pool_round = 1;  // bumped per flush swap-round (Ts::grp_round)
+  std::vector<Pending> flush_scratch;  // engine_flush_pool drain buffer
+  bool flushing = false;               // reentrancy guard for the scratch
+  int suppress_emit = 0;  // scoped stale-callback guard (per node: the
+                          // windows open and close within one delivery,
+                          // so this is worker-local in multicore mode)
+  std::vector<Fault> faults;
+  std::vector<std::pair<int, EMsg>> next_era_buffer;
+  std::vector<BatchData> pending_batches;
+  uint64_t handled = 0;
+};
+
+typedef void (*BatchEventCb)(int32_t node, int32_t era, int32_t epoch);
+typedef int32_t (*ContribCb)(int32_t node, int32_t era, int32_t epoch,
+                             int32_t proposer, const uint8_t* data,
+                             uint64_t len);
+// External-crypto callbacks (all Python-side; see native_engine.py):
+//  - VerifyBatchCb: verdicts for the flushing node's pending requests,
+//    exposed during the call via hbe_vreq_* accessors; Python writes one
+//    byte per request into `verdicts`.
+//  - SignCb: kind 0 = threshold signature share over ctx (the doc);
+//    kind 1 = decryption share for ctx (serde ciphertext payload).
+//    Result returned through hbe_ret_bytes(ret, ...).
+//  - CombineCb: kind 0 = combine signature shares -> signature bytes;
+//    kind 1 = combine decryption shares -> plaintext bytes.  The t+1
+//    (index, share) pairs are exposed via hbe_comb_* accessors.
+//  - CtParseCb: serde.try_loads verdict for a subset-accepted payload
+//    (1 = decodes to a well-formed Ciphertext) — mirrors
+//    honey_badger._start_decrypt's decode gate.
+typedef void (*VerifyBatchCb)(int32_t node, int32_t count, uint8_t* verdicts);
+typedef void (*SignCb)(int32_t node, int32_t era, int32_t kind,
+                       const uint8_t* ctx, uint64_t ctx_len, void* ret);
+typedef void (*CombineCb)(int32_t node, int32_t era, int32_t kind,
+                          const uint8_t* ctx, uint64_t ctx_len, int32_t count,
+                          void* ret);
+typedef int32_t (*CtParseCb)(int32_t node, const uint8_t* payload,
+                             uint64_t len);
+// Adversarial scheduling (upstream tests/net/adversary.rs pre_crank):
+// called before each delivery attempt with the queue length; Python
+// mirrors the seeded Adversary against the engine queue via
+// hbe_queue_swap — randomness stays in Python, so the swap stream
+// matches the VirtualNet's at the same seed by construction.
+typedef void (*PreCrankCb)(uint64_t queue_len);
+// Tampering adversary (upstream tests/net/adversary.rs `tamper`; Python
+// mirror net/adversary.py TamperingAdversary): called once per outgoing
+// TargetedMessage of a tamper-marked node (a broadcast counts once, like
+// one Step message).  During the call the engine exposes a PRIVATE clone
+// of the message through the hbe_tamper_* accessors/mutators; whatever
+// the callback leaves in the clone is what the network sees.  Randomness
+// stays in Python, so the decision stream matches the VirtualNet's
+// TamperingAdversary at the same seed by construction.
+typedef void (*TamperCb)(int32_t sender, int32_t type, int32_t era,
+                         int32_t epoch, int32_t proposer, int32_t round);
+
+// ---------------------------------------------------------------------------
+// Cluster (one-engine-per-node) mode
+//
+// The engine normally simulates ALL N nodes behind one internal queue.
+// With hbe_set_local(), it instead drives ONE local node over a real
+// transport: emissions to any other id are serde-encoded into wire
+// frames (the exact bytes Python's serde.dumps(SqMessage.algo(...))
+// would produce — wire_encode_algo) and epoch-gated per peer, a native
+// mirror of protocols/sender_queue.py for a STATIC validator set
+// (join-plan hand-off and deferred removal stay Python-side; the
+// cluster harnesses never change membership).  Ingress frames arrive
+// through hbe_node_ingest_frames as one byte batch per read burst.
+// ---------------------------------------------------------------------------
+
+// One held (ahead-of-window) egress message: SenderQueue._outbox entry.
+struct ClusterHeld {
+  int64_t era, epoch;
+  BytesP payload;
+};
+
+enum ClStat {
+  CL_HANDLED = 0,        // frames decoded to a consumable SqMessage
+  CL_BAD_PAYLOAD = 1,    // cluster.bad_payload mirror (decode rejects)
+  CL_IGNORED = 2,        // codec-valid but non-engine (join_plan, bare hbmsg)
+  CL_DROPPED_STALE = 3,  // egress dropped: behind the peer's window
+  CL_HELD = 4,           // egress held: ahead of the peer's window
+  CL_RELEASED = 5,       // held messages released by a peer announce
+  CL_SENT = 6,           // algo frames handed to the egress buffer
+  CL_ANNOUNCES = 7,      // epoch_started broadcasts emitted
+};
+
+// -- flight recorder ----------------------------------------------
+//
+// A bounded ring of milestone events (epoch open/commit, RBC value/
+// ready/deliver, BA round/coin/decide, decrypt start/done) stamped
+// with CLOCK_REALTIME nanoseconds so per-node rings from different
+// engines/processes merge on one wall clock (hbbft_tpu/obs/).  The
+// ring is preallocated at hbe_trace_enable — emitting is a branch, a
+// clock read and seven stores, no allocation — and overflow drops the
+// OLDEST record with a count (the drain cadence of the cluster
+// runtime makes that rare; a flood is bounded either way).  Names
+// mirror the Python tracer taxonomy (native_engine.TRACE_KIND_NAMES).
+enum TraceKind : int32_t {
+  TR_EPOCH_OPEN = 1,     // a=era, b=epoch
+  TR_EPOCH_COMMIT = 2,   // a=era, b=epoch, c=contribution count
+  TR_RBC_VALUE = 3,      // a=era, b=epoch, c=proposer (valid Value accepted)
+  TR_RBC_READY = 4,      // a=era, b=epoch, c=proposer (our Ready broadcast)
+  TR_RBC_DELIVER = 5,    // a=era, b=epoch, c=proposer (subset got the value)
+  TR_BA_ROUND = 6,       // a=era, b=epoch, c=proposer, d=new round
+  TR_BA_COIN = 7,        // a=era, b=epoch, c=proposer, d=(round<<1)|parity
+  TR_BA_DECIDE = 8,      // a=era, b=epoch, c=proposer, d=(round<<1)|value
+  TR_DECRYPT_START = 9,  // a=era, b=epoch, c=proposer
+  TR_DECRYPT_DONE = 10,  // a=era, b=epoch, c=proposer
+  TR_BA_INPUT = 11,      // a=era, b=epoch, c=proposer, d=(round<<1)|est
+};
+
+struct TraceRec {
+  int64_t ts_ns;  // CLOCK_REALTIME at emit
+  int32_t node;   // observing engine node id
+  int32_t kind;   // TraceKind
+  int32_t a, b, c, d;
+};
+
+struct TraceState {
+  std::vector<TraceRec> ring;  // preallocated at enable; cap 0 = off
+  uint32_t cap = 0;
+  uint64_t head = 0, tail = 0;  // unwrapped write/read cursors
+  uint64_t dropped = 0;
+};
+
+struct ClusterState {
+  int32_t local = -1;  // engine id of the local node; -1 = not cluster mode
+  int32_t window = 3;  // SenderQueue max_future_epochs send gate
+  int64_t ann_era = -1, ann_epoch = -1;  // last announced (era, epoch)
+  std::vector<std::array<int64_t, 2>> peer_epoch;  // last announce per peer
+  std::vector<std::deque<ClusterHeld>> outbox;     // ahead-of-window holds
+  std::vector<std::pair<int32_t, BytesP>> egress;  // drained by the runtime
+  uint64_t egress_bytes = 0;  // payload bytes pending in `egress`
+  // Broadcast encode memo: EngineOps::broadcast emits ONE shared EMsg to
+  // every destination back-to-back; holding the shared_ptr pins the
+  // object so the pointer-identity key can never alias a recycled
+  // address (cleared when the egress batch drains).
+  std::shared_ptr<const EMsg> enc_src;
+  BytesP enc_payload;
+  uint64_t stats[8] = {};  // ClStat counters (hbe_node_stat)
+};
+
+struct Engine {
+  int n = 0, f = 0;
+  std::vector<Node> nodes;
+  std::deque<QItem> queue;
+  uint64_t delivered = 0;
+  BatchEventCb batch_cb = nullptr;
+  ContribCb contrib_cb = nullptr;
+  // current batch exposed to Python during batch_cb
+  std::vector<std::pair<int, BytesP>> cur_batch;  // str-sorted (proposer, payload)
+  std::atomic<int> depth{0};  // >0 while inside a processing unit (nested entry points)
+  // -- external-crypto mode ------------------------------------------------
+  bool ext = false;
+  int flush_every = 1;  // 0 = flush only when the delivery queue runs dry
+  uint64_t since_flush = 0;
+  std::atomic<uint64_t> pool_items{0};  // total pending across all nodes
+  bool in_flush = false;
+  bool aborted = false;  // [port] a verify callback failed: stop (hbe_abort)
+  VerifyBatchCb verify_cb = nullptr;
+  SignCb sign_cb = nullptr;
+  CombineCb combine_cb = nullptr;
+  CtParseCb ct_parse_cb = nullptr;
+  PreCrankCb pre_crank_cb = nullptr;
+  TamperCb tamper_cb = nullptr;
+  EMsg* cur_tamper = nullptr;  // the clone exposed during tamper_cb
+  // requests exposed to Python during verify_cb (pointers into the batch)
+  std::vector<const VReq*> cur_vreqs;
+  // (index, share bytes) pairs exposed during combine_cb
+  std::vector<std::pair<int32_t, const Bytes*>> cur_comb;
+  // Verified-decode cache: once ANY node RS-decoded a root and the
+  // re-encoded codeword matched it, the value is pinned for the whole
+  // network — any >= k validated shards of that root reconstruct the
+  // same bytes (shards that validate against the root ARE the committed
+  // codeword, collisions aside).  Bounded FIFO.
+  std::map<Root, BytesP> decoded_roots;
+  std::deque<Root> decoded_order;
+  // -- multicore (generation-parallel) mode: see engine_run_mt ----------
+  bool mt_active = false;
+  std::mutex cache_mu;             // decoded_roots / mask_by_acc
+  std::recursive_mutex cb_mu;      // cur_batch + batch_cb (a batch
+                                   // callback may propose, re-entering
+                                   // commit_events on the same thread)
+  // Per-message-type delivery profiling (rdtsc cycles + counts).
+  uint64_t prof_cycles[16] = {};
+  uint64_t prof_count[16] = {};
+  // batch_cb nesting depth (a batch callback may propose, re-entering
+  // commit_events): the slot-12 stamp counts only outermost callbacks,
+  // whose wall already includes any nested ones.  Written only on the
+  // sequential driver path (same single-writer rule as the counters).
+  int batch_cb_depth = 0;
+  // KDF-mask cache keyed by the combined share (s*U, 32B BE): any t+1
+  // valid decryption shares of a ciphertext interpolate the SAME point,
+  // so the expensive kdf_stream over multi-KB ciphertexts (DKG-epoch
+  // payloads) runs once per ciphertext instead of once per node.
+  std::map<Root, Bytes> mask_by_acc;
+  std::deque<Root> mask_order;
+  // Ciphertext-hash cache keyed by the SHARED decoded payload object
+  // (round 6): hash_to_g2 over the ct hash input re-reads the whole
+  // ciphertext body — ~12M cycles for a DKG-epoch payload — and every
+  // node was recomputing it for the same committed value (the measured
+  // bulk of the non-Python continuation tail at era changes).  All
+  // nodes hold the SAME BytesP via decoded_roots, so key by pointer
+  // identity and PIN the payload (shared_ptr) so an address can never
+  // be reused while its entry lives.  This mirrors the Python net's
+  // Ciphertext.hash_input/_verify_ok memos on shared decoded objects —
+  // an optimization the engine was missing, never a semantics change
+  // (the hash is a pure function of the pinned bytes).
+  std::map<const Bytes*, std::pair<BytesP, U256>> ct_hash_by_payload;
+  std::deque<const Bytes*> ct_hash_order;
+  // HBBFT_TORCH_CT_HASH_CACHE=0 disables the cache (read at hbe_create):
+  // the HEAD-equivalent leg of back-to-back A/B measurements, and an
+  // escape hatch for the payload pinning if memory ever matters more
+  // than the recompute.
+  bool ct_hash_cache = true;
+  // HBBFT_TORCH_ARENA=0 (read at hbe_create): free the epoch-arena
+  // blocks at every reset instead of recycling them — the one-build
+  // A/B arm for the recycling itself (same flat containers, identical
+  // outputs by construction; docs/INVARIANTS.md "epoch-state arena").
+  bool arena_recycle = true;
+  // -- scalar RLC deferred verification (round 7) --------------------------
+  // COIN/DECRYPT share checks in scalar mode are deferred to the pool
+  // flush and verified per (Ts/Td instance) GROUP with one random-linear-
+  // combination check instead of one full-width mulmod per share
+  // (scalar_rlc_verdicts).  flush_every is shared with ext mode: scalar
+  // mode uses it when rlc is on (1 = eager per-unit flush, exactly the
+  // pre-round-7 flush points; 0 = flush on queue-dry — maximal grouping,
+  // identical protocol outputs by the deferred-verification invariant).
+  // HBBFT_TORCH_COIN_RLC=0 (read at hbe_create; hbe_set_rlc overrides)
+  // restores the pre-round-7 path: submit-time verdicts, per-unit flush.
+  bool rlc = true;
+  // Dirty-node list for the deferred scalar flush (VirtualNet's
+  // _dirty_pools): a pool can only fill while its own node's handler
+  // or flush runs, so engine_flush_scalar visits exactly these instead
+  // of scanning all N nodes per flush (the scan bounded how small
+  // flush_every could usefully go).  Maintained ONLY under the
+  // deferred cadence, which is sequential — never touched by workers.
+  std::vector<int32_t> dirty_nodes;
+  // Replay re-attribution (round 7): future-round / future-epoch
+  // REPLAYS run inside whatever delivery or continuation advanced the
+  // round/epoch — without re-attribution their cycles inflate that
+  // message type's slot (a COIN continuation would be billed for whole
+  // replayed BVAL/AUX/CONF loads, in BOTH RLC arms).  The replay loops
+  // stamp each replayed message's own-time into its own typed slot and
+  // add it here; enclosing typed stamps subtract the delta.  Counts
+  // are NOT re-ticked (the original delivery ticked them when it
+  // buffered).  Single-writer: only touched under !mt_active guards.
+  uint64_t replay_borrow = 0;
+  // True while engine_flush_scalar drains deferred pools: those
+  // continuations run OUTSIDE engine_run's typed delivery stamp, so
+  // engine_flush_pool folds their cycles back into the delivering
+  // message type's slot (BA_COIN / HB_DECRYPT) to keep cyc/delivery
+  // comparable across the HBBFT_TORCH_COIN_RLC A/B.
+  bool in_deferred_flush = false;
+  // -- cluster (one-engine-per-node) mode ------------------------
+  // Sequential-only, like the deferred cadences: hbe_run_mt falls back.
+  ClusterState cluster;
+  // -- flight recorder -------------------------------------------
+  // Sequential-only, like the counters above: emits are unguarded
+  // single-writer stores, so hbe_trace_enable is rejected for runs
+  // that will use engine_run_mt (the emit sites check !mt_active).
+  TraceState trace;
+};
+
+inline void trace_emit(Engine& e, int32_t node, int32_t kind, int32_t a,
+                       int32_t b, int32_t c, int32_t d) {
+  if (!e.trace.cap || e.mt_active) return;
+  TraceState& t = e.trace;
+  if (t.head - t.tail == t.cap) {
+    t.tail++;
+    t.dropped++;
+  }
+  int64_t ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                   std::chrono::system_clock::now().time_since_epoch())
+                   .count();
+  t.ring[t.head % t.cap] = TraceRec{ns, node, kind, a, b, c, d};
+  t.head++;
+}
+
+const size_t MASK_CACHE_MAX = 4096;
+
+const size_t DECODED_ROOTS_MAX = 8192;
+
+// ct-hash entries pin their payloads; DKG-epoch payloads are hundreds
+// of KB, so the cap is sized for N concurrent decrypts plus headroom
+// rather than the roomy counts of the byte-small caches above.
+const size_t CT_HASH_CACHE_MAX = 1024;
+
+// Scalar deferred-flush cadence active?  (Round 7: the RLC path shares
+// ext mode's flush_every machinery; 1 keeps the pre-round-7 per-unit
+// eager flush points exactly.)
+inline bool scalar_deferred(const Engine& e) {
+  return !e.ext && e.rlc && e.flush_every != 1;
+}
+
+inline void pool_push(Engine& e, Node& node, Pending&& p) {
+  node.pool.push_back(std::move(p));
+  e.pool_items++;
+  if (!node.pool_dirty && scalar_deferred(e)) {
+    node.pool_dirty = true;
+    e.dirty_nodes.push_back(node.id);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Scalar RLC group verification (round 7)
+//
+// Per-share check being amortized:   share_i == pk_i * H        (COIN)
+//                                    share_i * ct_h == pk_i * ct.w  (DECRYPT)
+// Group check over k pending shares of one Ts/Td instance, with small
+// nonzero 64-bit coefficients r_i from a deterministic splitmix chain
+// seeded per (instance hash, sub-range):
+//       Σ r_i*share_i == (Σ r_i*pk_i) * H          (resp. the two-sided
+//       Σ r_i*share_i * ct_h == (Σ r_i*pk_i) * ct.w decrypt form)
+// The Σ accumulators are UNREDUCED 512-bit integers (each term is a
+// 64x256 product; k < 2^191 cannot overflow 8 words), reduced once per
+// group through the existing Montgomery machinery — so the per-share
+// cost is one 4-limb widening mul + add per side (~7 cyc measured)
+// against a full Montgomery mulmod (~134 cyc) on the per-share path.
+//
+// Exactness: a group containing exactly one bad share can never pass
+// (r_i != 0 and the defect term r_i*δ_i is nonzero mod r); multiple
+// bad shares cancel only with probability ~2^-64 per check, and the
+// coefficients are re-drawn per bisection sub-range, so the recursion
+// terminates at per-item direct checks and attributes every bad share
+// to its sender exactly like the per-share path (the ScalarSuite is
+// the protocol-plane TEST suite — trivially forgeable by design — so
+// adversarial coefficient-grinding is out of scope; real crypto runs
+// the ext-mode backends).  docs/INVARIANTS.md "RLC byte-identity".
+// ---------------------------------------------------------------------------
+
+inline uint64_t rlc_mix(uint64_t z) {
+  z += 0x9e3779b97f4a7c15ULL;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+  return z ^ (z >> 31);
+}
+
+// ---- Scalar RLC share verification: one core, two layouts ----------------
+//
+// The RLC math (coefficient chain, unreduced accumulators, bisection,
+// break-even thresholds) exists ONCE, templated over a layout view:
+//  * GrpView — the deferred cadence's contiguous RlcShare arrays on a
+//    leader Pending (submit-time groups);
+//  * CsrView — flush_every=1 bursts' per-share Pendings via CSR
+//    indices (scalar_rlc_verdicts).
+// A single implementation keeps the two cadences' verdict behavior
+// mechanically identical (the RLC byte-identity invariant's mirror
+// obligation, docs/INVARIANTS.md).
+
+// Per-instance check constants: TS verifies share == pk*h1 (h1 =
+// doc_h); TD verifies share*h1 == pk*h2 (h1 = ct_h, h2 = ct.w).
+// h1m/h2m are the Montgomery lifts (h*2^256), computed once per
+// instance lookup so every check below is one-REDC (round 15); the
+// products they produce are the EXACT canonical values the classic
+// mulmod forms produced, so verdicts and fault logs are unchanged.
+struct RlcInstance {
+  bool is_ts;
+  const U256* h1;
+  const U256* h2;
+  U256 h1m, h2m;
+};
+
+inline RlcInstance rlc_instance(const Pending& p) {
+  RlcInstance in;
+  if (p.cont == CONT_TS) {
+    in.is_ts = true;
+    in.h1 = &p.ts->doc_h;
+    in.h2 = nullptr;
+    in.h1m = to_mont(*in.h1);
+  } else {
+    in.is_ts = false;
+    in.h1 = &p.td->ct_h;
+    in.h2 = &p.td->ct.w;
+    in.h1m = to_mont(*in.h1);
+    in.h2m = to_mont(*in.h2);
+  }
+  return in;
+}
+
+inline uint64_t rlc_seed(const RlcInstance& in) {
+  const U256& h = *in.h1;
+  return rlc_mix(h.w[0] ^ rlc_mix(h.w[1] ^ rlc_mix(h.w[2] ^ h.w[3])));
+}
+
+// Exact per-share check — the same formulas the pre-round-7 submit
+// path computed, over the pk snapshot taken at submit.  The TS check
+// is REPRESENTATIONAL (`share == mulmod(pk, doc_h)`; mulmod output is
+// canonical), so a non-canonical wire encoding (value >= r, congruent
+// to the valid share) must fail here too — congruence alone would
+// accept it and diverge from the per-share path's fault log.  The TD
+// check is congruence on BOTH sides in the per-share path (the share
+// flows through mulmod), so non-canonical decrypt shares pass in both
+// paths alike; no extra gate there.
+inline bool rlc_eq(const RlcInstance& in, const U256& sh, const U256& pk) {
+  // mont_mul(x, hm) = x*h*2^256*2^-256 = x*h — the exact canonical
+  // product the classic mulmod produced, in one REDC.
+  if (in.is_ts) {
+    if (u256_cmp(sh, R_MOD) >= 0) return false;
+    return sh == mont_mul(pk, in.h1m);
+  }
+  return mont_mul(sh, in.h1m) == mont_mul(pk, in.h2m);
+}
+
+inline bool rlc_eq_acc(const RlcInstance& in, const uint64_t sh[8],
+                       const uint64_t pk[8]) {
+  // The 512-bit accumulators reduce through ONE redc each (S*2^-256);
+  // comparing both sides in that uniformly 2^-256-scaled domain is
+  // exact (x -> x*2^-256 is a bijection mod r):
+  //   TS:  S == P*h1      <=>  S*2^-256 == mont_mul(P*2^-256, h1m)
+  //   TD:  S*h1 == P*h2   <=>  mont_mul(S*2^-256, h1m) ==
+  //                            mont_mul(P*2^-256, h2m)
+  // so verdicts are identical to the classic two-REDC-per-side form.
+  U256 s = redc(sh), p = redc(pk);
+  if (in.is_ts) return s == mont_mul(p, in.h1m);
+  return mont_mul(s, in.h1m) == mont_mul(p, in.h2m);
+}
+
+struct GrpView {
+  std::vector<RlcShare>& g;
+  const U256& share(size_t k) const { return g[k].share; }
+  const U256& pk(size_t k) const { return g[k].pk; }
+  int32_t sender(size_t k) const { return g[k].sender; }
+  void set_ok(size_t k, bool v) { g[k].ok = v ? 1 : 0; }
+};
+
+struct CsrView {
+  std::vector<Pending>& items;
+  const uint32_t* idxs;
+  const U256& share(size_t k) const { return items[idxs[k]].share; }
+  const U256& pk(size_t k) const { return items[idxs[k]].pk; }
+  int32_t sender(size_t k) const { return items[idxs[k]].sender; }
+  void set_ok(size_t k, bool v) { items[idxs[k]].pre_ok = v; }
+};
+
+// One RLC check over v[lo..hi).  Two passes (round 15): the sequential
+// coefficient chain (+ the TS canonicity gate) first, then the
+// accumulate as one batched kernel call over gathered contiguous
+// arrays.  The coefficient stream, early-fail behavior, and the exact
+// integer sums are identical to the fused per-item loop it replaces —
+// an integer sum is order- and arm-independent.
+template <class V>
+inline bool rlc_check_range_v(const RlcInstance& in, const V& v, size_t lo,
+                              size_t hi, uint64_t seed) {
+  size_t n = hi - lo;
+  // Workers run this under engine_run_mt: scratch is thread-local,
+  // capacity retained across checks (group sizes are small and bursty).
+  thread_local std::vector<uint64_t> coeffs;
+  thread_local std::vector<U256> shs, pks;
+  coeffs.resize(n);
+  shs.resize(n);
+  pks.resize(n);
+  uint64_t state = rlc_mix(seed ^ (uint64_t)lo * 0xc2b2ae3d27d4eb4fULL ^
+                           (uint64_t)hi * 0x165667b19e3779f9ULL);
+  for (size_t k = lo; k < hi; ++k) {
+    // Non-canonical TS share in the range: the RLC sum only sees the
+    // residue, but the per-share check is representational (rlc_eq
+    // notes) — force the range to FAIL so bisection attributes it
+    // exactly.
+    if (in.is_ts && u256_cmp(v.share(k), R_MOD) >= 0) return false;
+    state = rlc_mix(state ^ v.share(k).w[0] ^
+                    ((uint64_t)(uint32_t)v.sender(k) << 32));
+    coeffs[k - lo] = state | 1;  // nonzero: a lone bad share can't cancel
+    shs[k - lo] = v.share(k);
+    pks[k - lo] = v.pk(k);
+  }
+  uint64_t acc_sh[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  uint64_t acc_pk[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  hbf::rlc_accum(shs[0].w, coeffs.data(), n, acc_sh);
+  hbf::rlc_accum(pks[0].w, coeffs.data(), n, acc_pk);
+  return rlc_eq_acc(in, acc_sh, acc_pk);
+}
+
+// Assign verdicts for v[lo..hi): group check, bisect on failure,
+// per-share direct checks at the leaves (exact attribution).
+template <class V>
+void rlc_assign_range_v(const RlcInstance& in, V& v, size_t lo, size_t hi,
+                        uint64_t seed) {
+  if (hi - lo == 1) {
+    v.set_ok(lo, rlc_eq(in, v.share(lo), v.pk(lo)));
+    return;
+  }
+  if (rlc_check_range_v(in, v, lo, hi, seed)) {
+    for (size_t k = lo; k < hi; ++k) v.set_ok(k, true);
+    return;
+  }
+  size_t mid = lo + (hi - lo) / 2;
+  rlc_assign_range_v(in, v, lo, mid, seed);
+  rlc_assign_range_v(in, v, mid, hi, seed);
+}
+
+template <class V>
+inline void rlc_verify_range_v(const RlcInstance& in, V& v, size_t lo,
+                               size_t hi) {
+  if (hi - lo < 3) {
+    // RLC breaks even around three shares (two accumulate muls + the
+    // group finalize vs one direct mulmod per share); below that the
+    // direct checks win.
+    for (size_t k = lo; k < hi; ++k)
+      v.set_ok(k, rlc_eq(in, v.share(k), v.pk(k)));
+  } else {
+    rlc_assign_range_v(in, v, lo, hi, rlc_seed(in));
+  }
+}
+
+inline bool rlc_check_one(const Pending& p) {
+  return rlc_eq(rlc_instance(p), p.share, p.pk);
+}
+
+// Lazy CHUNKED verification, driven by the folded continuations as
+// they consume shares: the per-share path never verifies shares whose
+// continuations would run after termination, so verifying a whole
+// accumulated group up front did strictly MORE crypto than the
+// per-share path (at N=300 a group holds ~2.5x the f+1 shares the
+// instance needs).  Chunks are RLC-checked with (lo,hi)-seeded
+// coefficients like bisection sub-ranges; verdict semantics are
+// unchanged (post-termination shares get no verdict and no fault in
+// BOTH paths).  Returns the new verified limit.
+const size_t RLC_CHUNK = 32;
+
+inline size_t lead_verify_chunk(Pending& lead, size_t lo) {
+  size_t hi = lo + RLC_CHUNK;
+  if (hi > lead.grp.size()) hi = lead.grp.size();
+  RlcInstance in = rlc_instance(lead);
+  GrpView v{lead.grp};
+  rlc_verify_range_v(in, v, lo, hi);
+  return hi;
+}
+
+// ===========================================================================
+// Engine mechanics: emission, faults, pool flush, merkle/RS helpers
+// ===========================================================================
+
+// Multicore emission redirection: when set, the current worker's
+// delivery is accumulating its emissions for ordered splicing.
+thread_local std::vector<QItem>* tl_emit_sink = nullptr;
+
+// Cluster-mode hooks (defined with the wire codec, after engine_run):
+// route an emission to the epoch-gated egress, and broadcast an
+// epoch_started announce when the local node's (era, epoch) advanced.
+void cluster_emit(Engine& e, int dest, const std::shared_ptr<const EMsg>& msg);
+void cluster_announce(Engine& e);
+
+struct EngineOps {
+  Engine& e;
+  Node& node;
+
+  // One shared message object per emission, tampered first when the
+  // sender is adversary-owned.  The tamper callback mutates a clone, so
+  // the sender's OWN state keeps the honest values (exactly the Python
+  // TamperingAdversary, which rewrites step messages after the faulty
+  // node processed them honestly).
+  std::shared_ptr<const EMsg> outgoing(const EMsg& m) {
+    if (node.tampered && e.tamper_cb) {
+      EMsg clone = m;
+      e.cur_tamper = &clone;
+      e.tamper_cb(node.id, (int32_t)m.type, m.era, m.epoch, m.proposer,
+                  m.round);
+      e.cur_tamper = nullptr;
+      return std::make_shared<const EMsg>(std::move(clone));
+    }
+    return std::make_shared<const EMsg>(m);
+  }
+
+  // -- emission (drops when a stale-callback guard set suppress_emit) ---
+  //
+  // Multicore mode: workers never touch the shared queue — emissions
+  // land in the worker's per-delivery slot (tl_emit_sink) and the
+  // scheduler splices them back IN SOURCE-DELIVERY ORDER, reproducing
+  // the sequential FIFO append order exactly (engine_run_mt notes).
+  void emit(int dest, std::shared_ptr<const EMsg> msg) {
+    if (e.cluster.local >= 0) {
+      // Cluster mode: only the local node is ever driven, and send/
+      // broadcast already exclude self, so every emission targets a
+      // remote peer — encode + epoch-gate it toward the wire.
+      cluster_emit(e, dest, msg);
+      return;
+    }
+    if (tl_emit_sink) tl_emit_sink->push_back({node.id, dest, std::move(msg)});
+    else e.queue.push_back({node.id, dest, std::move(msg)});
+  }
+  void send(int dest, const EMsg& m) {
+    if (node.suppress_emit) return;
+    if (dest == node.id) return;
+    emit(dest, outgoing(m));
+  }
+  void broadcast(const EMsg& m) {
+    if (node.suppress_emit) return;
+    auto shared = outgoing(m);
+    for (int d = 0; d < e.n; ++d)
+      if (d != node.id) emit(d, shared);
+  }
+  void broadcast_except(const EMsg& m, const NodeSet& except) {
+    if (node.suppress_emit) return;
+    auto shared = outgoing(m);
+    for (int d = 0; d < e.n; ++d)
+      if (d != node.id && !except.has(d)) emit(d, shared);
+  }
+  void send_nodes(const EMsg& m, const NodeSet& dests) {
+    if (node.suppress_emit) return;
+    auto shared = outgoing(m);
+    for (int d = 0; d < e.n; ++d)
+      if (d != node.id && dests.has(d)) emit(d, shared);
+  }
+  void fault(int subject, const char* kind) {
+    node.faults.push_back({subject, kind});
+  }
+};
+
+inline Root merkle_leaf_hash(const Bytes& v) {
+  Bytes buf;
+  buf.push_back('\x00');
+  buf.append(v);
+  Root out;
+  hbn::sha3_256((const uint8_t*)buf.data(), buf.size(), out.data());
+  return out;
+}
+
+inline Root merkle_branch_hash(const Root& l, const Root& r) {
+  uint8_t buf[65];
+  buf[0] = 0x01;
+  std::memcpy(buf + 1, l.data(), 32);
+  std::memcpy(buf + 33, r.data(), 32);
+  Root out;
+  hbn::sha3_256(buf, 65, out.data());
+  return out;
+}
+
+// Batched Merkle level hashing (sha3 plane).  Leaves: count equal-length
+// shards (pointers; the 0x00 domain prefix is staged here), digests into
+// out[0..count).  Levels: m parent hashes from 2m children — the 65-byte
+// 0x01||l||r messages are staged contiguously and dispatched as one
+// batch.  Digests equal the per-call merkle_leaf_hash/merkle_branch_hash
+// values exactly (same FIPS-202 arm contract), so tree roots and proofs
+// are byte-identical to the unbatched forms.
+inline void merkle_leaves_hash(const uint8_t* const* shards, size_t shard_len,
+                               size_t count, Root* out) {
+  if (!count) return;
+  size_t msg_len = 1 + shard_len;
+  std::vector<uint8_t> stage(count * msg_len);
+  for (size_t i = 0; i < count; ++i) {
+    uint8_t* m = stage.data() + i * msg_len;
+    m[0] = 0x00;
+    std::memcpy(m + 1, shards[i], shard_len);
+  }
+  hbs::sha3_256_batch(stage.data(), msg_len, count, out[0].data());
+}
+
+inline void merkle_reduce_level(const Root* children, size_t m, Root* out) {
+  if (!m) return;
+  std::vector<uint8_t> stage(m * 65);
+  for (size_t i = 0; i < m; ++i) {
+    uint8_t* msg = stage.data() + i * 65;
+    msg[0] = 0x01;
+    std::memcpy(msg + 1, children[2 * i].data(), 32);
+    std::memcpy(msg + 33, children[2 * i + 1].data(), 32);
+  }
+  hbs::sha3_256_batch(stage.data(), 65, m, out[0].data());
+}
+
+inline int merkle_depth(int n_leaves) {
+  int d = 0, size = 1;
+  while (size < n_leaves) {
+    size <<= 1;
+    ++d;
+  }
+  return d;
+}
+
+inline bool proof_validate(const ProofData& p, int n_leaves) {
+  if (p.valid_memo >= 0 && p.valid_n == n_leaves) return p.valid_memo != 0;
+  bool ok = false;
+  if (p.index >= 0 && p.index < n_leaves &&
+      (int)p.path.size() == merkle_depth(n_leaves)) {
+    Root h = merkle_leaf_hash(p.value);
+    int idx = p.index;
+    for (const Root& sib : p.path) {
+      h = (idx & 1) ? merkle_branch_hash(sib, h) : merkle_branch_hash(h, sib);
+      idx >>= 1;
+    }
+    ok = h == p.root;
+  }
+  p.valid_memo = ok ? 1 : 0;
+  p.valid_n = n_leaves;
+  return ok;
+}
+
+// broadcast.py _pack: length-prefix + pad into k equal shards.  The
+// GF(2^16) codec (validator sets > 255) needs even shard lengths
+// (align = 2); GF(256) uses align = 1.
+inline std::vector<Bytes> rbc_pack(const Bytes& value, int k, int align) {
+  Bytes payload;
+  uint8_t len8[8];
+  uint64_t len = value.size();
+  for (int i = 0; i < 8; ++i) len8[i] = (uint8_t)(len >> (56 - 8 * i));
+  payload.append((const char*)len8, 8);
+  payload.append(value);
+  size_t shard_len = (payload.size() + k - 1) / k;
+  if (shard_len < 1) shard_len = 1;
+  shard_len = (shard_len + align - 1) / align * align;
+  payload.resize((size_t)k * shard_len, '\x00');
+  std::vector<Bytes> shards(k);
+  for (int i = 0; i < k; ++i)
+    shards[i] = payload.substr((size_t)i * shard_len, shard_len);
+  return shards;
+}
+
+inline bool rbc_unpack(const std::vector<Bytes>& data_shards, Bytes& out) {
+  Bytes payload;
+  for (const Bytes& s : data_shards) payload.append(s);
+  if (payload.size() < 8) return false;
+  uint64_t n = 0;
+  for (int i = 0; i < 8; ++i) n = (n << 8) | (uint8_t)payload[i];
+  if (8 + n > payload.size()) return false;
+  out = payload.substr(8, n);
+  return true;
+}
+
+// Cached systematic RS matrices (same semantics as gf256.encoding_matrix).
+// Capped FIFO + mutex + shared_ptr returns (these two
+// were the engine's last genuinely unbounded pure-function caches — the
+// per-engine decoded_roots / mask_by_acc / ct_hash_by_payload caches have
+// carried FIFO caps since rounds 6/7).  A (k, n) key changes only with
+// the validator-set size, so 64 entries is roomy even across many eras;
+// the shared_ptr keeps an evicted matrix alive for callers mid-matmul,
+// and the mutex makes first-build races (mt workers decode concurrently)
+// well-defined instead of accidentally-ordered.
+const size_t RS_MATRIX_CACHE_MAX = 64;
+
+template <typename Sym, bool (*BUILD)(int, int, std::vector<Sym>&)>
+inline std::shared_ptr<const std::vector<Sym>> rs_matrix_cached(int k, int n) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>,
+                  std::shared_ptr<const std::vector<Sym>>> cache;
+  static std::deque<std::pair<int, int>> order;
+  auto key = std::make_pair(k, n);
+  std::lock_guard<std::mutex> lk(mu);
+  auto it = cache.find(key);
+  if (it == cache.end()) {
+    std::vector<Sym> m;
+    if (!BUILD(k, n, m)) return nullptr;
+    if (cache.size() >= RS_MATRIX_CACHE_MAX) {
+      cache.erase(order.front());
+      order.pop_front();
+    }
+    it = cache
+             .emplace(key, std::make_shared<const std::vector<Sym>>(
+                               std::move(m)))
+             .first;
+    order.push_back(key);
+  }
+  return it->second;
+}
+
+inline bool rs_build8(int k, int n, std::vector<uint8_t>& m) {
+  return hbn::encoding_matrix_t<std::vector<uint8_t>>(k, n, m);
+}
+inline bool rs_build16(int k, int n, std::vector<uint16_t>& m) {
+  return hbn::encoding_matrix16_t<std::vector<uint16_t>>(k, n, m);
+}
+
+inline std::shared_ptr<const std::vector<uint8_t>> rs_matrix(int k, int n) {
+  return rs_matrix_cached<uint8_t, rs_build8>(k, n);
+}
+
+inline std::shared_ptr<const std::vector<uint16_t>> rs16_matrix(int k, int n) {
+  return rs_matrix_cached<uint16_t, rs_build16>(k, n);
+}
+
+inline int rs_align(int n) { return n > 255 ? 2 : 1; }
+
+// Parity rows for k contiguous data rows of `size` bytes; dispatches on
+// the validator count (GF(256) <= 255, GF(2^16) beyond).
+inline bool rs_encode_rows(int k, int n, const uint8_t* data, size_t size,
+                           std::vector<uint8_t>& parity) {
+  if (n <= 255) {
+    auto mat = rs_matrix(k, n);
+    if (!mat) return false;
+    parity.assign((size_t)(n - k) * size, 0);
+    hbn::gf_matmul(mat->data() + (size_t)k * k, data, parity.data(), n - k, k,
+                   size);
+    return true;
+  }
+  if (size % 2) return false;
+  auto mat = rs16_matrix(k, n);
+  if (!mat) return false;
+  size_t nsym = size / 2;
+  std::vector<uint16_t> dsym((size_t)k * nsym);
+  std::vector<uint16_t> psym((size_t)(n - k) * nsym);
+  hbn::bytes_to_sym16(data, (size_t)k * nsym, dsym.data());
+  hbn::gf16_matmul(mat->data() + (size_t)k * k, dsym.data(), psym.data(),
+                   n - k, k, nsym);
+  parity.resize((size_t)(n - k) * size);
+  hbn::sym16_to_bytes(psym.data(), (size_t)(n - k) * nsym, parity.data());
+  return true;
+}
+
+// Reconstruct the k data rows from k codeword rows with the given
+// indices; false = out-of-range index / singular subset / bad size.
+inline bool rs_reconstruct_rows(int k, int n,
+                                const std::vector<uint64_t>& idxs,
+                                const uint8_t* have, size_t size,
+                                std::vector<uint8_t>& data_out) {
+  for (uint64_t idx : idxs)
+    if (idx >= (uint64_t)n) return false;
+  if (n <= 255) {
+    auto mat = rs_matrix(k, n);
+    if (!mat) return false;
+    std::vector<uint8_t> sub((size_t)k * k), dec((size_t)k * k);
+    for (int r = 0; r < k; ++r)
+      std::memcpy(sub.data() + (size_t)r * k, mat->data() + idxs[r] * k, k);
+    if (!hbn::gf_mat_inv_t<std::vector<uint8_t>>(sub.data(), dec.data(), k))
+      return false;
+    data_out.assign((size_t)k * size, 0);
+    hbn::gf_matmul(dec.data(), have, data_out.data(), k, k, size);
+    return true;
+  }
+  if (size % 2) return false;
+  auto mat = rs16_matrix(k, n);
+  if (!mat) return false;
+  std::vector<uint16_t> sub((size_t)k * k), dec((size_t)k * k);
+  for (int r = 0; r < k; ++r)
+    std::memcpy(sub.data() + (size_t)r * k, mat->data() + idxs[r] * k, 2 * k);
+  if (!hbn::gf16_mat_inv_t<std::vector<uint16_t>>(sub.data(), dec.data(), k))
+    return false;
+  size_t nsym = size / 2;
+  std::vector<uint16_t> hsym((size_t)k * nsym), dsym((size_t)k * nsym);
+  hbn::bytes_to_sym16(have, (size_t)k * nsym, hsym.data());
+  hbn::gf16_matmul(dec.data(), hsym.data(), dsym.data(), k, k, nsym);
+  data_out.resize((size_t)k * size);
+  hbn::sym16_to_bytes(dsym.data(), (size_t)k * nsym, data_out.data());
+  return true;
+}
+
+// ===========================================================================
+// The protocol logic.  Layered exactly as the Python stack: each child
+// call takes an output accumulator processed at the parent boundary
+// (the Python Step.output / map_messages discipline).
+// ===========================================================================
+
+struct Ctx;  // per-node processing context
+
+struct Ctx {
+  Engine& e;
+  Node& node;
+  EngineOps ops;
+  std::vector<std::pair<int, int>> batch_events;  // (era, epoch) pending
+
+  Ctx(Engine& e_, Node& n_) : e(e_), node(n_), ops{e_, n_} {}
+
+  // Engine node count (message routing: Target.all expands over every
+  // node, observers included — VirtualNet.node_order).
+  int n_route() const { return e.n; }
+  // Era validator-set sizes (NetworkInfo thresholds).
+  int n() const { return node.era_n; }
+  int f() const { return node.era_f; }
+  int num_correct() const { return node.era_n - node.era_f; }
+  bool is_val(int id) const { return node.val_index[id] >= 0; }
+
+  // ---- ThresholdSign (coin) ----------------------------------------------
+  //
+  // `parity_out` carries the coin value(s) of any signature combined in
+  // this call (Signature.parity()) — scalar mode computes the combine
+  // natively, external mode through the Python combine callback.
+
+  void ts_input(EpochState& st, int proposer, Ba& ba, Ts& ts,
+                std::vector<uint8_t>& parity_out) {
+    if (ts.had_input) return;
+    ts.had_input = true;
+    if (!node.has_share) return;
+    EMsg m;
+    m.era = node.era;
+    m.epoch = st.epoch;
+    m.proposer = proposer;
+    m.round = ba.round;
+    m.type = BA_COIN;
+    if (e.ext) {
+      auto share_b = std::make_shared<Bytes>();
+      e.sign_cb(node.id, node.era, 0, (const uint8_t*)ts.doc.data(),
+                ts.doc.size(), share_b.get());
+      m.share_b = share_b;
+      ops.broadcast(m);
+      if (!ts.terminated) {
+        ts.seen.add(node.id);
+        ts.verified_b.push_back({node.id, *share_b});
+        ts.verified_set.add(node.id);
+        ts_try_output(ts, parity_out);
+      }
+      return;
+    }
+    U256 share = mulmod(node.sk_share, ts.doc_h);
+    m.share = share;
+    ops.broadcast(m);
+    if (!ts.terminated) {
+      ts.seen.add(node.id);
+      ts.verified.push_back({node.id, share});
+      ts.verified_set.add(node.id);
+      ts_try_output(ts, parity_out);
+    }
+  }
+
+  void ts_handle_share(EpochState& st, int proposer, Ba& ba,
+                       std::shared_ptr<Ts> ts, int sender, const EMsg& m,
+                       std::vector<uint8_t>& parity_out) {
+    (void)parity_out;
+    if (ts->terminated) return;
+    if (!is_val(sender)) {
+      ops.fault(sender, F_TS_NONVAL);
+      return;
+    }
+    if (ts->seen.has(sender)) {
+      ops.fault(sender, F_TS_DUP);
+      return;
+    }
+    ts->seen.add(sender);
+    Pending p;
+    p.cont = CONT_TS;
+    p.era = node.era;
+    p.epoch = st.epoch;
+    p.proposer = proposer;
+    p.rnd = ba.round;
+    p.sender = sender;
+    p.ts = ts;
+    if (e.ext) {
+      p.share_b = m.share_b ? m.share_b : std::make_shared<const Bytes>();
+      p.need_verdict = true;
+      p.req.kind = VK_SIG;
+      p.req.era = p.era;
+      p.req.sender = sender;
+      p.req.doc = &ts->doc;  // Ts kept alive by p.ts
+      p.req.share = p.share_b;
+    } else {
+      p.share = m.share;
+      if (e.rlc && scalar_deferred(e)) {
+        // Round-7 deferred RLC path: shares of one Ts accumulate as a
+        // CONTIGUOUS group on the instance's leader Pending (formed
+        // HERE, while the state is cache-hot); the flush verifies the
+        // whole group with one RLC check — Σ rᵢ·shareᵢ ==
+        // (Σ rᵢ·pkᵢ)·doc_h — bisecting failures so verdicts match the
+        // per-share path exactly (scalar_rlc docs / INVARIANTS.md).
+        if (ts->grp_round == node.pool_round && ts->grp_idx >= 0) {
+          node.pool[ts->grp_idx].grp.push_back(
+              {m.share, node.pk_shares[sender], sender, 0});
+          return;
+        }
+        p.rlc_defer = true;
+        p.grp.push_back({m.share, node.pk_shares[sender], sender, 0});
+        ts->grp_round = node.pool_round;
+        ts->grp_idx = (int32_t)node.pool.size();  // this push's index
+      } else if (e.rlc) {
+        // flush_every=1: per-share Pendings at the pre-round-7 flush
+        // points; the flush's verdict pass checks them (grouped only
+        // within one unit's burst), keeping runs byte-identical to the
+        // Python net.
+        p.rlc_defer = true;
+        p.pk = node.pk_shares[sender];
+      } else {
+        // Pre-round-7 path (HBBFT_TORCH_COIN_RLC=0): compute the verdict
+        // now (order-independent scalar check), run the protocol
+        // callback at flush (pool order).
+        p.pre_ok = p.share == mulmod(node.pk_shares[sender], ts->doc_h);
+      }
+    }
+    pool_push(e, node, std::move(p));
+  }
+
+  // pool callback: TS._on_verified lifted through the coin-round /
+  // epoch / era guards (binary_agreement._coin_scope_wrap +
+  // honey_badger._guard_epoch).
+  // mirror: ts-acceptance-item (twin: threshold_sign.handle_message /
+  //     _on_verified — acceptance-rule changes land on BOTH sides)
+  void ts_verified_cb(int era, int epoch, int proposer, int rnd,
+                      std::shared_ptr<Ts> ts, int sender, const U256& share,
+                      std::shared_ptr<const Bytes> share_b, bool ok) {
+    bool live_epoch = node.era == era && node.hb_init && node.hb.epoch == epoch;
+    if (!live_epoch) node.suppress_emit++;
+    std::vector<uint8_t> parity_out;
+    // inner: TS._on_verified
+    if (!ts->terminated) {
+      if (!ok) {
+        ops.fault(sender, F_TS_INVALID);
+      } else {
+        if (e.ext)
+          ts->verified_b.push_back({sender, *share_b});
+        else
+          ts->verified.push_back({sender, share});
+        ts->verified_set.add(sender);
+        ts_try_output(*ts, parity_out);
+      }
+    }
+    // lift: coin scope (round / BA termination / same instance), then the
+    // subset-output and epoch-advance boundaries (_on_ba_step ->
+    // _guard_epoch(_on_subset_step) -> _advance in the Python chain).
+    if (live_epoch) {
+      EpochState& st = node.hb.state;
+      if (!parity_out.empty()) {
+        Ba& ba = st.proposals[proposer].ba;
+        if (ba.round == rnd && !ba.terminated && ba.coin == ts) {
+          for (uint8_t par : parity_out) ba_on_coin(st, proposer, ba, par);
+        }
+      }
+      hb_drain_subset_outputs(st);
+      hb_advance();
+    }
+    if (!live_epoch) node.suppress_emit--;
+  }
+
+  // Folded continuation for a deferred RLC GROUP of same-Ts shares
+  // (scalar deferred mode only): the inner TS._on_verified body runs
+  // per item in pool order, but the coin-scope/epoch lift — and the
+  // caller's commit_events — run once per group instead of once per
+  // share.  This is observably identical to running ts_verified_cb per
+  // item: pre-termination items' lifts are no-ops (no parity yet, no
+  // pending subset outputs/batches), and post-termination items are
+  // complete no-ops (the Python path records no fault after
+  // termination either), so only the single terminating item's lift
+  // has effects — and it runs here with the same state it would have
+  // seen per-item.  Fault order within the group is submission order,
+  // as in the per-share path.
+  // mirror: ts-acceptance-group (twin: threshold_sign._on_verified —
+  //     acceptance-rule changes land on BOTH continuations)
+  void ts_group_verified_cb(int era, int epoch, int proposer, int rnd,
+                            const std::shared_ptr<Ts>& ts, Pending& lead) {
+    size_t count = lead.grp.size(), vlim = 0;
+    bool live_epoch = node.era == era && node.hb_init && node.hb.epoch == epoch;
+    if (!live_epoch) node.suppress_emit++;
+    std::vector<uint8_t> parity_out;
+    for (size_t k = 0; k < count; ++k) {
+      if (ts->terminated) break;  // later items are no-ops (see above)
+      if (k >= vlim) vlim = lead_verify_chunk(lead, k);
+      const RlcShare& sh = lead.grp[k];
+      if (!sh.ok) {
+        ops.fault(sh.sender, F_TS_INVALID);
+        continue;
+      }
+      ts->verified.push_back({sh.sender, sh.share});
+      ts->verified_set.add(sh.sender);
+      ts_try_output(*ts, parity_out);
+    }
+    if (live_epoch) {
+      EpochState& st = node.hb.state;
+      if (!parity_out.empty()) {
+        Ba& ba = st.proposals[proposer].ba;
+        if (ba.round == rnd && !ba.terminated && ba.coin == ts) {
+          for (uint8_t par : parity_out) ba_on_coin(st, proposer, ba, par);
+        }
+      }
+      hb_drain_subset_outputs(st);
+      hb_advance();
+    }
+    if (!live_epoch) node.suppress_emit--;
+  }
+
+  void ts_try_output(Ts& ts, std::vector<uint8_t>& parity_out) {
+    int threshold = f();
+    size_t have = e.ext ? ts.verified_b.size() : ts.verified.size();
+    if (ts.terminated || (int)have < threshold + 1) return;
+    if (e.ext) {
+      // by_index -> sorted, first threshold+1, combine via Python.
+      std::vector<std::pair<int, const Bytes*>> by_index;
+      for (auto& kv : ts.verified_b)
+        by_index.push_back({node.val_index[kv.first], &kv.second});
+      std::sort(by_index.begin(), by_index.end(),
+                [](auto& a, auto& b) { return a.first < b.first; });
+      by_index.resize(threshold + 1);
+      e.cur_comb.clear();
+      for (auto& kv : by_index) e.cur_comb.push_back({kv.first, kv.second});
+      Bytes sig;
+      e.combine_cb(node.id, node.era, 0, (const uint8_t*)ts.doc.data(),
+                   ts.doc.size(), (int32_t)e.cur_comb.size(), &sig);
+      e.cur_comb.clear();
+      ts.terminated = true;
+      uint8_t digest[32];
+      hbn::sha3_256((const uint8_t*)sig.data(), sig.size(), digest);
+      parity_out.push_back(digest[0] & 1);
+      return;
+    }
+    // by_index (netinfo.index) -> sorted, first threshold+1, combine.
+    std::vector<std::pair<int, U256>> by_index;
+    by_index.reserve(ts.verified.size());
+    for (auto& kv : ts.verified)
+      by_index.push_back({node.val_index[kv.first], kv.second});
+    std::sort(by_index.begin(), by_index.end(),
+              [](auto& a, auto& b) { return a.first < b.first; });
+    by_index.resize(threshold + 1);
+    std::vector<int> idxs;
+    idxs.reserve(by_index.size());
+    for (auto& kv : by_index) idxs.push_back(kv.first);
+    // Hold the shared_ptr for the whole sum: lifetime extension does
+    // NOT apply through the dereference of a temporary, and a
+    // concurrent cache eviction dropping the last refcount mid-sum
+    // would be a use-after-free under engine_run_mt.
+    uint64_t t0 = prof_tick();
+    std::shared_ptr<const std::vector<U256>> lam_p = lagrange_cached(idxs);
+    const std::vector<U256>& lam = *lam_p;
+    // Gather the shares contiguous and run the whole Lagrange sum as
+    // one batched dot product (field plane; round 15).  thread_local
+    // scratch (the rlc_check_range_v pattern, per-worker under
+    // engine_run_mt): the gather sits inside the slot-14 timed window,
+    // so a per-combine allocation would fold allocator jitter into the
+    // A/B readout.
+    static thread_local std::vector<U256> shs;
+    shs.resize(by_index.size());
+    for (size_t i = 0; i < by_index.size(); ++i) shs[i] = by_index[i].second;
+    U256 acc;
+    hbf::dot_batch(lam[0].w, shs[0].w, shs.size(), acc.w);
+    if (!e.mt_active) {
+      // Slot 14 (registry: SIMD combine-kernel wall): the COIN/DECRYPT
+      // combine component — Lagrange coefficients + combine-sum — for
+      // the HBBFT_TORCH_SIMD A/B readout.
+      e.prof_cycles[14] += prof_tick() - t0;
+      e.prof_count[14]++;
+    }
+    ts.signature = acc;
+    ts.terminated = true;
+    parity_out.push_back(sig_parity(acc) ? 1 : 0);
+  }
+
+  // ---- SBV ----------------------------------------------------------------
+
+  void sbv_emit(EpochState& st, int proposer, int rnd, MsgType t, bool b) {
+    EMsg m;
+    m.era = node.era;
+    m.epoch = st.epoch;
+    m.proposer = proposer;
+    m.round = rnd;
+    m.type = t;
+    m.bval = b ? 1 : 0;
+    ops.broadcast(m);
+  }
+
+  void sbv_input(EpochState& st, int proposer, int rnd, Sbv& s, bool b,
+                 std::vector<uint8_t>& outs) {
+    sbv_send_bval(st, proposer, rnd, s, b, outs);
+  }
+
+  void sbv_send_bval(EpochState& st, int proposer, int rnd, Sbv& s, bool b,
+                     std::vector<uint8_t>& outs) {
+    if (s.bval_sent[b]) return;
+    s.bval_sent[b] = true;
+    sbv_emit(st, proposer, rnd, BA_BVAL, b);
+    sbv_handle_bval(st, proposer, rnd, s, node.id, b, outs);
+  }
+
+  void sbv_send_aux(EpochState& st, int proposer, int rnd, Sbv& s, bool b,
+                    std::vector<uint8_t>& outs) {
+    s.aux_sent = true;
+    sbv_emit(st, proposer, rnd, BA_AUX, b);
+    sbv_handle_aux(st, proposer, rnd, s, node.id, b, outs);
+  }
+
+  void sbv_handle_bval(EpochState& st, int proposer, int rnd, Sbv& s,
+                       int sender, bool b, std::vector<uint8_t>& outs) {
+    if (s.bval_received[b].has(sender)) {
+      if (s.termed_bval[b].has(sender)) {
+        s.termed_bval[b].clear(sender);
+        return;
+      }
+      ops.fault(sender, F_SBV_DUP_BVAL);
+      return;
+    }
+    s.bval_received[b].add(sender);
+    int count = s.bval_received[b].count();
+    if (count >= f() + 1 && !s.bval_sent[b])
+      sbv_send_bval(st, proposer, rnd, s, b, outs);
+    uint8_t bit = b ? 2 : 1;
+    if (count >= 2 * f() + 1 && !(s.bin_values & bit)) {
+      bool first = s.bin_values == 0;
+      s.bin_values |= bit;
+      if (first && !s.aux_sent) sbv_send_aux(st, proposer, rnd, s, b, outs);
+      sbv_try_output(s, outs);
+    }
+  }
+
+  void sbv_handle_aux(EpochState& st, int proposer, int rnd, Sbv& s,
+                      int sender, bool b, std::vector<uint8_t>& outs) {
+    (void)st;
+    (void)proposer;
+    (void)rnd;
+    if (s.aux_received[b].has(sender)) {
+      if (s.termed_aux[b].has(sender)) {
+        s.termed_aux[b].clear(sender);
+        return;
+      }
+      ops.fault(sender, F_SBV_DUP_AUX);
+      return;
+    }
+    s.aux_received[b].add(sender);
+    sbv_try_output(s, outs);
+  }
+
+  void sbv_add_term_evidence(EpochState& st, int proposer, int rnd, Sbv& s,
+                             int sender, bool b, std::vector<uint8_t>& outs) {
+    if (!s.bval_received[b].has(sender)) {
+      s.termed_bval[b].add(sender);
+      sbv_handle_bval(st, proposer, rnd, s, sender, b, outs);
+    }
+    if (!s.aux_received[b].has(sender)) {
+      s.termed_aux[b].add(sender);
+      sbv_handle_aux(st, proposer, rnd, s, sender, b, outs);
+    }
+  }
+
+  void sbv_try_output(Sbv& s, std::vector<uint8_t>& outs) {
+    if (!s.bin_values) return;
+    uint8_t vals = 0;
+    int count = 0;
+    for (int b = 0; b < 2; ++b) {  // BoolSet iterates False then True
+      if (!(s.bin_values & (b ? 2 : 1))) continue;
+      int senders = s.aux_received[b].count();
+      if (senders) {
+        vals |= b ? 2 : 1;
+        count += senders;
+      }
+    }
+    int all_senders = (s.aux_received[0] | s.aux_received[1]).count();
+    if (count > all_senders) count = all_senders;
+    if (count >= num_correct() && vals && (int)vals != s.last_output) {
+      s.last_output = vals;
+      outs.push_back(vals);
+    }
+  }
+
+  // ---- BinaryAgreement ----------------------------------------------------
+
+  void ba_make_coin(Ba& ba) { ba_make_coin_static(ba); }
+
+  // process SBV outputs at the BA boundary (binary_agreement._wrap)
+  void ba_consume_sbv(EpochState& st, int proposer, Ba& ba,
+                      std::vector<uint8_t>& outs) {
+    for (size_t i = 0; i < outs.size(); ++i) ba_on_sbv_vals(st, proposer, ba);
+    outs.clear();
+  }
+
+  void ba_on_sbv_vals(EpochState& st, int proposer, Ba& ba) {
+    if (!ba.conf_sent) {
+      ba.conf_sent = true;
+      EMsg m;
+      m.era = node.era;
+      m.epoch = st.epoch;
+      m.proposer = proposer;
+      m.round = ba.round;
+      m.type = BA_CONF;
+      m.bval = ba.sbv.bin_values;
+      ops.broadcast(m);
+      ba_handle_conf(st, proposer, ba, node.id, ba.sbv.bin_values);
+    } else {
+      ba_try_start_coin(st, proposer, ba);
+    }
+  }
+
+  void ba_handle_conf(EpochState& st, int proposer, Ba& ba, int sender,
+                      uint8_t vals) {
+    if (ba.confs_set.has(sender)) {
+      if (!ba.term_confs.has(sender)) ops.fault(sender, F_BA_DUP_CONF);
+      return;
+    }
+    ba.confs_set.add(sender);
+    ba.confs.push_back({sender, vals});
+    ba_try_start_coin(st, proposer, ba);
+  }
+
+  void ba_try_start_coin(EpochState& st, int proposer, Ba& ba) {
+    if (ba.coin_requested || !ba.conf_sent) return;
+    uint8_t bin = ba.sbv.bin_values;
+    int accepted_count = 0;
+    uint8_t acc_union = 0;
+    for (auto& kv : ba.confs) {
+      if ((kv.second & ~bin) == 0) {  // is_subset(bin_values)
+        ++accepted_count;
+        acc_union |= kv.second;
+      }
+    }
+    if (accepted_count < num_correct()) return;
+    ba.coin_requested = true;
+    ba.conf_vals = acc_union;
+    std::vector<uint8_t> parity_out;
+    ts_input(st, proposer, ba, *ba.coin, parity_out);
+    for (uint8_t par : parity_out) ba_on_coin(st, proposer, ba, par);
+    ba_maybe_advance(st, proposer, ba);
+  }
+
+  void ba_on_coin(EpochState& st, int proposer, Ba& ba, uint8_t parity) {
+    ba.coin_value = parity ? 1 : 0;
+    trace_emit(e, node.id, TR_BA_COIN, node.era, st.epoch, proposer,
+               (ba.round << 1) | (parity ? 1 : 0));
+    ba_maybe_advance(st, proposer, ba);
+  }
+
+  void ba_maybe_advance(EpochState& st, int proposer, Ba& ba) {
+    if (ba.terminated || ba.coin_value < 0 || ba.conf_vals < 0) return;
+    bool s = ba.coin_value == 1;
+    // BoolSet.definite()
+    int definite = -1;
+    if (ba.conf_vals == 2) definite = 1;
+    if (ba.conf_vals == 1) definite = 0;
+    if (definite >= 0) {
+      if ((definite == 1) == s) {
+        ba_decide(st, proposer, ba, definite == 1);
+        return;
+      }
+      ba.estimate = definite;
+    } else {
+      ba.estimate = s ? 1 : 0;
+    }
+    ba_next_round(st, proposer, ba);
+  }
+
+  void ba_next_round(EpochState& st, int proposer, Ba& ba) {
+    ba.round += 1;
+    trace_emit(e, node.id, TR_BA_ROUND, node.era, st.epoch, proposer,
+               ba.round);
+    ba.sbv = Sbv(n(), f());
+    ba.conf_sent = false;
+    ba.confs.clear();
+    ba.confs_set = NodeSet();
+    ba.coin_requested = false;
+    ba.coin_value = -1;
+    ba.conf_vals = -1;
+    ba_make_coin(ba);
+    std::vector<uint8_t> outs;
+    // Terms seed the new round's evidence (Python iterates False, True).
+    for (int b = 0; b < 2; ++b) {
+      // Python iterates a set of senders — ints ascend (see CPython
+      // small-int set iteration note in the engine tests).
+      for (int sender = 0; sender < n(); ++sender) {
+        if (!ba.terms[b].has(sender)) continue;
+        sbv_add_term_evidence(st, proposer, ba.round, ba.sbv, sender, b, outs);
+        ba_consume_sbv(st, proposer, ba, outs);
+        // Python: confs.setdefault(sender, single(b)); term_confs.add
+        // (unconditional) — no conf-threshold re-check here.
+        if (!ba.confs_set.has(sender)) {
+          ba.confs_set.add(sender);
+          ba.confs.push_back({sender, (uint8_t)(b ? 2 : 1)});
+        }
+        ba.term_confs.add(sender);
+      }
+    }
+    sbv_input(st, proposer, ba.round, ba.sbv, ba.estimate == 1, outs);
+    ba_consume_sbv(st, proposer, ba, outs);
+    // Replay buffered future-round messages, re-attributing each
+    // replayed message's cycles to its own type (Engine::replay_borrow).
+    std::vector<std::pair<int, EMsg>> future;
+    future.swap(ba.future);
+    ba.future_count.clear();
+    if (!e.mt_active) {
+      // One tick per message (chained: each message's end is the next
+      // one's start) — a 2-rdtsc-per-replay version measurably taxed
+      // replay-heavy deferred cadences.
+      uint64_t t_prev = prof_tick();
+      for (auto& sm : future) {
+        if (e.in_deferred_flush && sm.second.type == BA_COIN) {
+          // A replayed coin share's own work (a group append) already
+          // lands in a COIN/DECRYPT continuation stamp: re-attribution
+          // would move cycles within the same slot class while paying
+          // a tick per message — skip it (the stamps exist for
+          // CROSS-type honesty: BVAL/AUX/CONF loads inside coin
+          // continuations).
+          ba_handle_message(st, proposer, ba, sm.first, sm.second);
+          t_prev = prof_tick();
+          continue;
+        }
+        uint64_t b0 = e.replay_borrow;
+        ba_handle_message(st, proposer, ba, sm.first, sm.second);
+        uint64_t inner = e.replay_borrow - b0;
+        uint64_t t_now = prof_tick();
+        uint64_t own = t_now - t_prev - inner;
+        t_prev = t_now;
+        e.prof_cycles[sm.second.type & 15] += own;
+        e.replay_borrow = b0 + inner + own;
+      }
+    } else {
+      for (auto& sm : future)
+        ba_handle_message(st, proposer, ba, sm.first, sm.second);
+    }
+  }
+
+  void ba_handle_term(EpochState& st, int proposer, Ba& ba, int sender,
+                      bool b) {
+    if (ba.term_senders.has(sender)) {
+      if (!ba.terms[b].has(sender)) ops.fault(sender, F_BA_DUP_TERM);
+      return;
+    }
+    ba.term_senders.add(sender);
+    ba.terms[b].add(sender);
+    if (!ba.terminated) {
+      if (ba.terms[b].count() >= f() + 1) {
+        ba_decide(st, proposer, ba, b);
+        return;
+      }
+      std::vector<uint8_t> outs;
+      sbv_add_term_evidence(st, proposer, ba.round, ba.sbv, sender, b, outs);
+      ba_consume_sbv(st, proposer, ba, outs);
+      if (!ba.confs_set.has(sender)) {
+        ba.term_confs.add(sender);
+        ba_handle_conf(st, proposer, ba, sender, b ? 2 : 1);
+      }
+    }
+  }
+
+  void ba_decide(EpochState& st, int proposer, Ba& ba, bool b) {
+    if (ba.terminated) return;
+    ba.decision = b ? 1 : 0;
+    ba.terminated = true;
+    trace_emit(e, node.id, TR_BA_DECIDE, node.era, st.epoch, proposer,
+               (ba.round << 1) | (b ? 1 : 0));
+    EMsg m;
+    m.era = node.era;
+    m.epoch = st.epoch;
+    m.proposer = proposer;
+    m.round = ba.round;
+    m.type = BA_TERM;
+    m.bval = b ? 1 : 0;
+    ops.broadcast(m);
+    subset_on_ba_decision(st, proposer, b);
+  }
+
+  void ba_input(EpochState& st, int proposer, Ba& ba, bool input) {
+    if (ba.estimate >= 0 || ba.terminated) return;
+    ba.estimate = input ? 1 : 0;
+    // Round-16 stall diagnosis: a BA instance stuck at round 0 emits no
+    // TR_BA_ROUND (that fires on advance) — this is the "BA started"
+    // marker.  Mirrors the Python arm's "ba.input" milestone.
+    trace_emit(e, node.id, TR_BA_INPUT, node.era, st.epoch, proposer,
+               (ba.round << 1) | (input ? 1 : 0));
+    std::vector<uint8_t> outs;
+    sbv_input(st, proposer, ba.round, ba.sbv, input, outs);
+    ba_consume_sbv(st, proposer, ba, outs);
+  }
+
+  void ba_handle_message(EpochState& st, int proposer, Ba& ba, int sender,
+                         const EMsg& m) {
+    if (m.type == BA_TERM) {
+      ba_handle_term(st, proposer, ba, sender, m.bval != 0);
+      return;
+    }
+    if (ba.terminated) return;
+    if (m.round < ba.round) return;  // stale: drop
+    if (m.round > ba.round) {
+      if (m.round - ba.round <= MAX_FUTURE_ROUNDS) {
+        // The per-sender cap (4 * MAX_FUTURE_ROUNDS) cannot bind while
+        // the WHOLE buffer holds fewer entries than the cap, so the
+        // honest path skips the per-sender map entirely (a map op per
+        // buffered share taxed the deferred RLC cadence, where rounds
+        // advance at flush and most coin traffic buffers).  Crossing
+        // the threshold rebuilds exact counts from the buffer — every
+        // entry was admitted unconditionally below it — so the drop
+        // decisions are identical to counting from the start.
+        size_t cap = (size_t)(4 * MAX_FUTURE_ROUNDS);
+        if (ba.future.size() < cap) {
+          ba.future.push_back({sender, m});
+        } else {
+          if (ba.future_count.empty())
+            for (auto& sm : ba.future)
+              ba.future_count.ref(node.arena, e.n, sm.first)++;
+          int32_t& cnt = ba.future_count.ref(node.arena, e.n, sender);
+          if (cnt < (int32_t)cap) {
+            ++cnt;
+            ba.future.push_back({sender, m});
+          }
+        }
+      }
+      return;
+    }
+    std::vector<uint8_t> outs;
+    switch (m.type) {
+      case BA_BVAL:
+        sbv_handle_bval(st, proposer, m.round, ba.sbv, sender, m.bval != 0,
+                        outs);
+        ba_consume_sbv(st, proposer, ba, outs);
+        break;
+      case BA_AUX:
+        sbv_handle_aux(st, proposer, m.round, ba.sbv, sender, m.bval != 0,
+                       outs);
+        ba_consume_sbv(st, proposer, ba, outs);
+        break;
+      case BA_CONF:
+        ba_handle_conf(st, proposer, ba, sender, m.bval);
+        break;
+      case BA_COIN: {
+        std::vector<uint8_t> parity_out;
+        ts_handle_share(st, proposer, ba, ba.coin, sender, m, parity_out);
+        for (uint8_t par : parity_out) ba_on_coin(st, proposer, ba, par);
+        break;
+      }
+      default:
+        break;
+    }
+  }
+
+  // ---- Subset -------------------------------------------------------------
+  //
+  // Subset outputs (contribution / done) are APPENDED to the epoch
+  // state's pending list and drained only at the honey-badger boundary
+  // (hb_drain_subset_outputs) — mirroring Python, where
+  // Subset._progress appends to the step and HoneyBadger's
+  // _on_subset_step (under _guard_epoch) processes the accumulated
+  // outputs after the complete subset-level call.  Draining inline
+  // would reorder verify-pool submissions (decrypt vs coin shares).
+
+  void subset_input(EpochState& st, const BytesP& payload) {
+    if (st.subset_terminated) return;
+    bc_input(st, node.id, st.proposals[node.id].bc, payload);
+  }
+
+  void subset_handle_message(EpochState& st, int sender, const EMsg& m) {
+    if (st.subset_terminated) return;
+    if (m.proposer < 0 || m.proposer >= e.n || !is_val(m.proposer)) {
+      ops.fault(sender, F_SS_UNKNOWN);
+      return;
+    }
+    Proposal& prop = st.proposals[m.proposer];
+    switch (m.type) {
+      case BC_VALUE:
+      case BC_ECHO:
+      case BC_READY:
+      case BC_ECHO_HASH:
+      case BC_CAN_DECODE:
+        bc_handle_message(st, m.proposer, prop.bc, sender, m);
+        break;
+      default:
+        ba_handle_message(st, m.proposer, prop.ba, sender, m);
+        break;
+    }
+  }
+
+  // Broadcast delivered a value for this proposer (subset._on_bc_step).
+  void subset_on_bc_value(EpochState& st, int proposer, const BytesP& value) {
+    Proposal& prop = st.proposals[proposer];
+    if (!prop.value) {
+      prop.value = value;
+      trace_emit(e, node.id, TR_RBC_DELIVER, node.era, st.epoch, proposer, 0);
+      ba_input(st, proposer, prop.ba, true);
+    }
+    subset_progress(st, proposer);
+  }
+
+  // BA decided for this proposer (subset._on_ba_step reaction).  Runs
+  // inline at the decide point: the deciding BA is terminated, so no
+  // further emissions/pool submissions occur between the Python-deferred
+  // point and here (see ba_decide).
+  void subset_on_ba_decision(EpochState& st, int proposer, bool decision) {
+    Proposal& prop = st.proposals[proposer];
+    if (prop.decision < 0) {
+      prop.decision = decision ? 1 : 0;
+      subset_after_decision(st);
+    }
+    subset_progress(st, proposer);
+  }
+
+  void subset_after_decision(EpochState& st) {
+    int accepted = 0;
+    for (int pid : node.val_ids)
+      if (st.proposals[pid].decision == 1) ++accepted;
+    if (accepted < num_correct()) return;
+    for (int pid : node.val_ids) {  // insertion order == sorted all_ids
+      Proposal& p = st.proposals[pid];
+      if (p.decision < 0 && !p.ba.terminated) ba_input(st, pid, p.ba, false);
+    }
+  }
+
+  void subset_progress(EpochState& st, int proposer) {
+    if (st.subset_terminated) return;
+    Proposal& prop = st.proposals[proposer];
+    if (prop.decision == 1 && prop.value && !prop.emitted) {
+      prop.emitted = true;
+      st.pending_outputs.push_back({false, proposer, prop.value});
+    }
+    bool all_decided = true, all_done = true;
+    for (int pid : node.val_ids) {
+      Proposal& p = st.proposals[pid];
+      if (p.decision < 0) all_decided = false;
+      if (!(p.emitted || p.decision == 0)) all_done = false;
+    }
+    if (all_decided && all_done && !st.done_emitted) {
+      st.done_emitted = true;
+      st.subset_terminated = true;
+      st.pending_outputs.push_back({true, 0, nullptr});
+    }
+  }
+
+  // ---- Broadcast ----------------------------------------------------------
+
+  void bc_send_root(EpochState& st, int proposer, MsgType t, const Root& root,
+                    int dest /* -1 broadcast */) {
+    EMsg m;
+    m.era = node.era;
+    m.epoch = st.epoch;
+    m.proposer = proposer;
+    m.type = t;
+    m.root = root;
+    if (dest < 0)
+      ops.broadcast(m);
+    else
+      ops.send(dest, m);
+  }
+
+  void bc_input(EpochState& st, int proposer, Bcast& bc, const BytesP& value) {
+    if (node.id != bc.proposer || bc.had_input) return;
+    bc.had_input = true;
+    int k = bc.data_shards;
+    std::vector<Bytes> shards = rbc_pack(*value, k, rs_align(n()));
+    // RS parity over the VALIDATOR count (shards are per validator index)
+    size_t size = shards[0].size();
+    std::vector<uint8_t> data(k * size);
+    for (int i = 0; i < k; ++i)
+      std::memcpy(data.data() + i * size, shards[i].data(), size);
+    std::vector<uint8_t> parity;
+    bool enc_ok = rs_encode_rows(k, n(), data.data(), size, parity);
+    assert(enc_ok);
+    (void)enc_ok;
+    for (int i = k; i < n(); ++i)
+      shards.push_back(
+          Bytes((const char*)parity.data() + (size_t)(i - k) * size, size));
+    // Merkle tree over n() (validator-count) leaves + per-validator
+    // proofs — leaf and branch levels go through the batched sha3 plane
+    // (padding leaves all hash the same empty shard: one digest, copied).
+    int depth = merkle_depth(n());
+    int tree_size = 1 << depth;
+    std::vector<std::vector<Root>> levels(1);
+    levels[0].resize(tree_size);
+    {
+      std::vector<const uint8_t*> ptrs(n());
+      for (int i = 0; i < n(); ++i) ptrs[i] = (const uint8_t*)shards[i].data();
+      merkle_leaves_hash(ptrs.data(), size, n(), levels[0].data());
+    }
+    if (n() < tree_size) {
+      Root pad = merkle_leaf_hash(Bytes());
+      for (int i = n(); i < tree_size; ++i) levels[0][i] = pad;
+    }
+    while ((int)levels.back().size() > 1) {
+      const std::vector<Root>& prev = levels.back();
+      std::vector<Root> next(prev.size() / 2);
+      merkle_reduce_level(prev.data(), next.size(), next.data());
+      levels.push_back(std::move(next));
+    }
+    Root root = levels.back()[0];
+    // netinfo.all_ids order: sorted validator ids; shard index = val index.
+    for (int vi = 0; vi < n(); ++vi) {
+      int nid = node.val_ids[vi];
+      auto proof = std::make_shared<ProofData>();
+      proof->value = shards[vi];
+      proof->index = vi;
+      int idx = vi;
+      for (size_t lv = 0; lv + 1 < levels.size(); ++lv) {
+        proof->path.push_back(levels[lv][idx ^ 1]);
+        idx >>= 1;
+      }
+      proof->root = root;
+      if (nid == node.id) {
+        bc_handle_value(st, proposer, bc, node.id, proof);
+      } else {
+        EMsg m;
+        m.era = node.era;
+        m.epoch = st.epoch;
+        m.proposer = proposer;
+        m.type = BC_VALUE;
+        m.proof = proof;
+        ops.send(nid, m);
+      }
+    }
+  }
+
+  void bc_handle_message(EpochState& st, int proposer, Bcast& bc, int sender,
+                         const EMsg& m) {
+    if (bc.terminated) return;
+    if (!is_val(sender)) {
+      ops.fault(sender, F_BC_NOT_PROPOSER);
+      return;
+    }
+    switch (m.type) {
+      case BC_VALUE:
+        if (sender != bc.proposer) {
+          ops.fault(sender, F_BC_NOT_PROPOSER);
+          return;
+        }
+        bc_handle_value(st, proposer, bc, sender, m.proof);
+        return;
+      case BC_ECHO:
+        bc_handle_echo(st, proposer, bc, sender, m.proof);
+        return;
+      case BC_READY:
+        bc_handle_ready(st, proposer, bc, sender, m.root);
+        return;
+      case BC_ECHO_HASH:
+        bc_handle_echo_hash(st, proposer, bc, sender, m.root);
+        return;
+      case BC_CAN_DECODE:
+        bc_handle_can_decode(st, proposer, bc, sender, m.root);
+        return;
+      default:
+        return;
+    }
+  }
+
+  void bc_handle_value(EpochState& st, int proposer, Bcast& bc, int sender,
+                       std::shared_ptr<const ProofData> proof) {
+    if (bc.echo_sent) {
+      const ProofData* const* it = bc.echos.find(node.id);
+      if (it && proof->root != (*it)->root)
+        ops.fault(sender, F_BC_MULTI_VALUE);
+      return;
+    }
+    if (proof->index != node.val_index[node.id] ||
+        !proof_validate(*proof, n())) {
+      ops.fault(sender, F_BC_INVALID_PROOF);
+      return;
+    }
+    bc.echo_sent = true;
+    trace_emit(e, node.id, TR_RBC_VALUE, node.era, st.epoch, proposer, 0);
+    // Full Echo to everyone except CanDecode-declared peers; hash-only
+    // Echo to those (broadcast.py _handle_value).
+    NodeSet hash_only;
+    bool any_hash_only = false;
+    for (int i = 0; i < bc.can_decode.cap; ++i)
+      if (bc.can_decode.has(i) && bc.can_decode.v[i] == proof->root) {
+        hash_only.add(i);
+        any_hash_only = true;
+      }
+    EMsg em;
+    em.era = node.era;
+    em.epoch = st.epoch;
+    em.proposer = proposer;
+    em.type = BC_ECHO;
+    em.proof = proof;
+    ops.broadcast_except(em, hash_only);
+    if (any_hash_only) {
+      EMsg hm;
+      hm.era = node.era;
+      hm.epoch = st.epoch;
+      hm.proposer = proposer;
+      hm.type = BC_ECHO_HASH;
+      hm.root = proof->root;
+      ops.send_nodes(hm, hash_only);
+    }
+    bc_handle_echo(st, proposer, bc, node.id, proof);
+  }
+
+  // Distinct senders per root via the incremental tally (a sender may
+  // appear in BOTH echos and echo_hashes for the same root — the
+  // EchoHash-then-full-Echo order — and is tallied once; see the
+  // hit-guarded bump in bc_handle_echo).
+  int bc_echo_count(const Bcast& bc, const Root& root) {
+    return Bcast::tally(bc.echo_any_by_root, root);
+  }
+
+  void bc_handle_echo(EpochState& st, int proposer, Bcast& bc, int sender,
+                      std::shared_ptr<const ProofData> proof) {
+    const ProofData* const* it = bc.echos.find(sender);
+    if (it) {
+      const ProofData& prev = **it;
+      if (!(prev.value == proof->value && prev.index == proof->index &&
+            prev.path == proof->path && prev.root == proof->root))
+        ops.fault(sender, F_BC_DUP);
+      return;
+    }
+    if (proof->index != node.val_index[sender]) {
+      ops.fault(sender, F_BC_WRONG_INDEX);
+      return;
+    }
+    if (!proof_validate(*proof, n())) {
+      ops.fault(sender, F_BC_INVALID_PROOF);
+      return;
+    }
+    const Root* hit = bc.echo_hashes.find(sender);
+    if (hit && *hit != proof->root) {
+      ops.fault(sender, F_BC_DUP);
+      return;
+    }
+    bc.echos.ref(node.arena, e.n, sender) = proof.get();
+    node.epoch_pins.push_back(proof);  // epoch-long ownership (arena note)
+    Bcast::bump(bc.echo_full_by_root, proof->root);
+    // A same-root EchoHash from this sender was already tallied in
+    // echo_any_by_root (the union count de-duplicates senders).
+    if (!hit)
+      Bcast::bump(bc.echo_any_by_root, proof->root);
+    bc_maybe_can_decode(st, proposer, bc, proof->root);
+    if (bc_echo_count(bc, proof->root) >= n() - f() && !bc.ready_sent)
+      bc_send_ready(st, proposer, bc, proof->root);
+    bc_try_decode(st, proposer, bc);
+  }
+
+  void bc_handle_echo_hash(EpochState& st, int proposer, Bcast& bc, int sender,
+                           const Root& root) {
+    const Root* eh = bc.echo_hashes.find(sender);
+    const ProofData* const* ec = bc.echos.find(sender);
+    if (eh || ec) {
+      Root prev = eh ? *eh : (*ec)->root;
+      if (prev != root) ops.fault(sender, F_BC_DUP);
+      return;
+    }
+    bc.echo_hashes.ref(node.arena, e.n, sender) = root;
+    Bcast::bump(bc.echo_any_by_root, root);
+    if (bc_echo_count(bc, root) >= n() - f() && !bc.ready_sent)
+      bc_send_ready(st, proposer, bc, root);
+    bc_try_decode(st, proposer, bc);
+  }
+
+  void bc_handle_can_decode(EpochState& st, int proposer, Bcast& bc,
+                            int sender, const Root& root) {
+    (void)st;
+    (void)proposer;
+    const Root* it = bc.can_decode.find(sender);
+    if (it) {
+      if (*it != root) ops.fault(sender, F_BC_DUP);
+      return;
+    }
+    bc.can_decode.ref(node.arena, e.n, sender) = root;
+  }
+
+  void bc_maybe_can_decode(EpochState& st, int proposer, Bcast& bc,
+                           const Root& root) {
+    if (bc.can_decode_sent || bc.terminated) return;
+    if (!node.has_share) return;  // observers stay silent (is_validator)
+    // Full-proof echos carry distinct shard indices (wrong-index echos
+    // are faulted before insertion), so the per-root echo tally IS the
+    // distinct-shard count.
+    if (Bcast::tally(bc.echo_full_by_root, root) >= bc.data_shards) {
+      bc.can_decode_sent = true;
+      bc_send_root(st, proposer, BC_CAN_DECODE, root, -1);
+    }
+  }
+
+  void bc_handle_ready(EpochState& st, int proposer, Bcast& bc, int sender,
+                       const Root& root) {
+    const Root* it = bc.readys.find(sender);
+    if (it) {
+      if (*it != root) ops.fault(sender, F_BC_DUP);
+      return;
+    }
+    bc.readys.ref(node.arena, e.n, sender) = root;
+    int count = Bcast::bump(bc.ready_by_root, root);
+    if (count == 1) bc.ready_root_order.push_back(root);
+    if (count >= f() + 1 && !bc.ready_sent)
+      bc_send_ready(st, proposer, bc, root);
+    bc_try_decode(st, proposer, bc);
+  }
+
+  void bc_send_ready(EpochState& st, int proposer, Bcast& bc,
+                     const Root& root) {
+    bc.ready_sent = true;
+    trace_emit(e, node.id, TR_RBC_READY, node.era, st.epoch, proposer, 0);
+    bc_send_root(st, proposer, BC_READY, root, -1);
+    bc_handle_ready(st, proposer, bc, node.id, root);
+  }
+
+  void bc_try_decode(EpochState& st, int proposer, Bcast& bc) {
+    if (bc.terminated) return;
+    // Counter(readys.values()) iterates distinct roots in first-seen order.
+    for (const Root& root : bc.ready_root_order) {
+      if (Bcast::tally(bc.ready_by_root, root) < 2 * f() + 1) continue;
+      // Cheap tally gate before walking echos: distinct shard indices
+      // per root == full-echo count (see bc_maybe_can_decode).
+      if (Bcast::tally(bc.echo_full_by_root, root) < bc.data_shards)
+        continue;
+      // Reference the shard bytes in place — materializing copies on
+      // every decode attempt dominated big-payload (DKG) epochs.
+      std::map<int, const Bytes*> shards;  // index -> value (last write wins)
+      // Ascending sender-id walk == the old map's ascending-key walk,
+      // so "last write wins" resolves identically per shard index.
+      for (int s = 0; s < bc.echos.cap; ++s) {
+        if (!bc.echos.has(s)) continue;
+        const ProofData* pd = bc.echos.v[s];
+        if (pd->root == root) shards[pd->index] = &pd->value;
+      }
+      if ((int)shards.size() < bc.data_shards) continue;
+      // Network-wide decode cache (see Engine::decoded_roots).
+      {
+        BytesP cached;
+        {
+          std::lock_guard<std::mutex> lk(e.cache_mu);
+          auto hit = e.decoded_roots.find(root);
+          if (hit != e.decoded_roots.end()) cached = hit->second;
+        }
+        if (cached) {
+          bc.value = cached;
+          bc.terminated = true;
+          subset_on_bc_value(st, proposer, bc.value);
+          return;
+        }
+      }
+      size_t len0 = SIZE_MAX;
+      bool equal_len = true;
+      for (auto& kv : shards) {
+        if (len0 == SIZE_MAX) len0 = kv.second->size();
+        else if (kv.second->size() != len0) equal_len = false;
+      }
+      if (!equal_len) {
+        bc.terminated = true;
+        ops.fault(bc.proposer, F_BC_BAD_ENC);
+        return;
+      }
+      // reconstruct data shards then re-encode the FULL codeword
+      int k = bc.data_shards;
+      std::vector<uint64_t> idxs;
+      std::vector<uint8_t> have;
+      have.reserve((size_t)k * len0);
+      for (auto& kv : shards) {
+        if ((int)idxs.size() == k) break;
+        idxs.push_back(kv.first);
+        have.insert(have.end(), kv.second->begin(), kv.second->end());
+      }
+      std::vector<uint8_t> data;
+      if (!rs_reconstruct_rows(k, n(), idxs, have.data(), len0, data)) {
+        bc.terminated = true;
+        ops.fault(bc.proposer, F_BC_BAD_ENC);
+        return;
+      }
+      // re-encode full codeword + re-hash the tree
+      std::vector<uint8_t> parity;
+      if (!rs_encode_rows(k, n(), data.data(), len0, parity)) {
+        bc.terminated = true;
+        ops.fault(bc.proposer, F_BC_BAD_ENC);
+        return;
+      }
+      int depth = merkle_depth(n());
+      int tree_size = 1 << depth;
+      // batched sha3 plane: leaf level straight off the decoded rows (no
+      // per-shard Bytes copies), branch levels as contiguous batches.
+      std::vector<Root> level(tree_size);
+      {
+        std::vector<const uint8_t*> ptrs(n());
+        for (int i = 0; i < n(); ++i)
+          ptrs[i] = i < k ? data.data() + (size_t)i * len0
+                          : parity.data() + (size_t)(i - k) * len0;
+        merkle_leaves_hash(ptrs.data(), len0, n(), level.data());
+      }
+      if (n() < tree_size) {
+        Root pad = merkle_leaf_hash(Bytes());
+        for (int i = n(); i < tree_size; ++i) level[i] = pad;
+      }
+      while (level.size() > 1) {
+        std::vector<Root> next(level.size() / 2);
+        merkle_reduce_level(level.data(), next.size(), next.data());
+        level = std::move(next);
+      }
+      if (level[0] != root) {
+        bc.terminated = true;
+        ops.fault(bc.proposer, F_BC_BAD_ENC);
+        return;
+      }
+      std::vector<Bytes> data_shards;
+      for (int i = 0; i < k; ++i)
+        data_shards.push_back(Bytes((const char*)data.data() + (size_t)i * len0, len0));
+      Bytes value;
+      if (!rbc_unpack(data_shards, value)) {
+        bc.terminated = true;
+        ops.fault(bc.proposer, F_BC_BAD_ENC);
+        return;
+      }
+      BytesP vp = std::make_shared<const Bytes>(std::move(value));
+      {
+        std::lock_guard<std::mutex> lk(e.cache_mu);
+        e.decoded_roots.emplace(root, vp);
+        e.decoded_order.push_back(root);
+        if (e.decoded_order.size() > DECODED_ROOTS_MAX) {
+          e.decoded_roots.erase(e.decoded_order.front());
+          e.decoded_order.pop_front();
+        }
+      }
+      bc.value = vp;
+      bc.terminated = true;
+      subset_on_bc_value(st, proposer, vp);
+      return;
+    }
+  }
+
+  // ---- ThresholdDecrypt ---------------------------------------------------
+
+  std::shared_ptr<Td> hb_get_decrypt(EpochState& st, int proposer) {
+    std::shared_ptr<Td>& slot = st.decrypts[proposer];
+    if (!slot) slot = std::make_shared<Td>();
+    return slot;
+  }
+
+  // hash_to_g2 of the ct hash input, once per distinct committed
+  // payload network-wide (Engine::ct_hash_by_payload notes).  The
+  // heavy sha3 runs OUTSIDE the lock; a concurrent double-compute is
+  // harmless (pure function, first emplace wins).
+  U256 ct_hash_cached(const BytesP& payload, const ScalarCiphertext& ct) {
+    if (!e.ct_hash_cache) return ct_hash_scalar(ct);
+    {
+      std::lock_guard<std::mutex> lk(e.cache_mu);
+      auto it = e.ct_hash_by_payload.find(payload.get());
+      if (it != e.ct_hash_by_payload.end()) return it->second.second;
+    }
+    U256 h = ct_hash_scalar(ct);
+    std::lock_guard<std::mutex> lk(e.cache_mu);
+    auto ins = e.ct_hash_by_payload.emplace(
+        payload.get(), std::make_pair(payload, h));
+    if (ins.second) {
+      e.ct_hash_order.push_back(payload.get());
+      if (e.ct_hash_order.size() > CT_HASH_CACHE_MAX) {
+        e.ct_hash_by_payload.erase(e.ct_hash_order.front());
+        e.ct_hash_order.pop_front();
+      }
+    }
+    return h;
+  }
+
+  void td_handle_input(EpochState& st, int proposer, std::shared_ptr<Td> td,
+                       const ScalarCiphertext& ct, const BytesP& payload) {
+    if (td->has_ct || td->terminated) return;
+    td->has_ct = true;
+    td->ct = ct;
+    td->ct_h = ct_hash_cached(payload, ct);
+    Pending p;
+    p.cont = CONT_TD_CT;
+    p.era = node.era;
+    p.epoch = st.epoch;
+    p.proposer = proposer;
+    p.td = td;
+    p.pre_ok = td->ct.w == mulmod(td->ct.u, td->ct_h);  // validity pairing
+    pool_push(e, node, std::move(p));
+  }
+
+  // External mode: the payload already passed the Python-side serde
+  // decode gate (ct_parse_cb); validity is a deferred VK_CT request.
+  void td_handle_input_ext(EpochState& st, int proposer,
+                           std::shared_ptr<Td> td, const BytesP& payload) {
+    if (td->has_ct || td->terminated) return;
+    td->has_ct = true;
+    td->ct_payload = payload;
+    Pending p;
+    p.cont = CONT_TD_CT;
+    p.era = node.era;
+    p.epoch = st.epoch;
+    p.proposer = proposer;
+    p.td = td;
+    p.need_verdict = true;
+    p.req.kind = VK_CT;
+    p.req.era = p.era;
+    p.req.ct = td->ct_payload.get();  // Td kept alive by p.td
+    pool_push(e, node, std::move(p));
+  }
+
+  void td_ct_checked_cb(int era, int epoch, int proposer,
+                        std::shared_ptr<Td> td, bool ok) {
+    bool live = node.era == era && node.hb_init && node.hb.epoch == epoch;
+    if (!live) node.suppress_emit++;
+    std::vector<BytesP> plain_out;
+    // inner: ThresholdDecrypt._on_ciphertext_checked
+    if (!td->terminated) {
+      if (!ok) {
+        td->ciphertext_invalid = true;
+        td->terminated = true;
+      } else {
+        td->ct_valid = true;
+        if (node.has_share) {
+          EMsg m;
+          m.era = era;
+          m.epoch = epoch;
+          m.proposer = proposer;
+          m.type = HB_DECRYPT;
+          td->seen.add(node.id);
+          if (e.ext) {
+            auto share_b = std::make_shared<Bytes>();
+            e.sign_cb(node.id, era, 1,
+                      (const uint8_t*)td->ct_payload->data(),
+                      td->ct_payload->size(), share_b.get());
+            m.share_b = share_b;
+            td->verified_b.push_back({node.id, *share_b});
+          } else {
+            U256 share = mulmod(td->ct.u, node.sk_share);
+            m.share = share;
+            td->verified.push_back({node.id, share});
+          }
+          td->verified_set.add(node.id);
+          ops.broadcast(m);
+        }
+        if (e.ext) {
+          std::vector<std::pair<int, Bytes>> buffered;
+          buffered.swap(td->buffered_b);
+          for (auto& kv : buffered)
+            td_submit_share_ext(era, epoch, proposer, td, kv.first,
+                                std::make_shared<const Bytes>(std::move(kv.second)));
+        } else {
+          std::vector<std::pair<int, U256>> buffered;
+          buffered.swap(td->buffered);
+          for (auto& kv : buffered)
+            td_submit_share(era, epoch, proposer, td, kv.first, kv.second);
+        }
+        td_try_output(*td, plain_out);
+      }
+    }
+    if (live) {
+      hb_on_decrypt_boundary(proposer, td, plain_out);
+      hb_advance();
+    }
+    if (!live) node.suppress_emit--;
+  }
+
+  void td_submit_share(int era, int epoch, int proposer, std::shared_ptr<Td> td,
+                       int sender, const U256& share) {
+    Pending p;
+    p.cont = CONT_TD_SHARE;
+    p.era = era;
+    p.epoch = epoch;
+    p.proposer = proposer;
+    p.sender = sender;
+    p.td = td;
+    p.share = share;
+    if (e.rlc && scalar_deferred(e)) {
+      // Round-7 deferred RLC path (see ts_handle_share): submit-time
+      // group on the Td's leader Pending; flush check is the two-sided
+      // Σ rᵢ·shareᵢ·ct_h == (Σ rᵢ·pkᵢ)·ct_w.
+      if (td->grp_round == node.pool_round && td->grp_idx >= 0) {
+        node.pool[td->grp_idx].grp.push_back(
+            {share, node.pk_shares[sender], sender, 0});
+        return;
+      }
+      p.rlc_defer = true;
+      p.grp.push_back({share, node.pk_shares[sender], sender, 0});
+      td->grp_round = node.pool_round;
+      td->grp_idx = (int32_t)node.pool.size();
+    } else if (e.rlc) {
+      p.rlc_defer = true;
+      p.pk = node.pk_shares[sender];
+    } else {
+      p.pre_ok =
+          mulmod(share, td->ct_h) == mulmod(node.pk_shares[sender], td->ct.w);
+    }
+    pool_push(e, node, std::move(p));
+  }
+
+  void td_submit_share_ext(int era, int epoch, int proposer,
+                           std::shared_ptr<Td> td, int sender,
+                           std::shared_ptr<const Bytes> share_b) {
+    Pending p;
+    p.cont = CONT_TD_SHARE;
+    p.era = era;
+    p.epoch = epoch;
+    p.proposer = proposer;
+    p.sender = sender;
+    p.td = td;
+    p.share_b = share_b;
+    p.need_verdict = true;
+    p.req.kind = VK_DEC;
+    p.req.era = era;
+    p.req.sender = sender;
+    p.req.ct = td->ct_payload.get();
+    p.req.share = p.share_b;
+    pool_push(e, node, std::move(p));
+  }
+
+  // mirror: td-acceptance-item (twin: threshold_decrypt.handle_message /
+  //     _on_verified — acceptance-rule changes land on BOTH sides)
+  void td_verified_cb(int era, int epoch, int proposer, std::shared_ptr<Td> td,
+                      int sender, const U256& share,
+                      std::shared_ptr<const Bytes> share_b, bool ok) {
+    bool live = node.era == era && node.hb_init && node.hb.epoch == epoch;
+    if (!live) node.suppress_emit++;
+    std::vector<BytesP> plain_out;
+    if (!td->terminated) {  // Python: terminated check BEFORE the ok check
+      if (!ok) {
+        ops.fault(sender, F_TD_INVALID);
+      } else {
+        if (e.ext)
+          td->verified_b.push_back({sender, *share_b});
+        else
+          td->verified.push_back({sender, share});
+        td->verified_set.add(sender);
+        td_try_output(*td, plain_out);
+      }
+    }
+    if (live) {
+      hb_on_decrypt_boundary(proposer, td, plain_out);
+      hb_advance();
+    }
+    if (!live) node.suppress_emit--;
+  }
+
+  // Folded continuation for a deferred RLC GROUP of same-Td decryption
+  // shares — the ThresholdDecrypt twin of ts_group_verified_cb (same
+  // no-op argument: pre-termination lifts see an empty plain_out and a
+  // valid ciphertext, post-termination items are skipped entirely).
+  // mirror: td-acceptance-group (twin: threshold_decrypt._on_verified —
+  //     acceptance-rule changes land on BOTH continuations)
+  void td_group_verified_cb(int era, int epoch, int proposer,
+                            const std::shared_ptr<Td>& td, Pending& lead) {
+    size_t count = lead.grp.size(), vlim = 0;
+    bool live = node.era == era && node.hb_init && node.hb.epoch == epoch;
+    if (!live) node.suppress_emit++;
+    std::vector<BytesP> plain_out;
+    for (size_t k = 0; k < count; ++k) {
+      if (td->terminated) break;
+      if (k >= vlim) vlim = lead_verify_chunk(lead, k);
+      const RlcShare& sh = lead.grp[k];
+      if (!sh.ok) {
+        ops.fault(sh.sender, F_TD_INVALID);
+        continue;
+      }
+      td->verified.push_back({sh.sender, sh.share});
+      td->verified_set.add(sh.sender);
+      td_try_output(*td, plain_out);
+    }
+    if (live) {
+      hb_on_decrypt_boundary(proposer, td, plain_out);
+      hb_advance();
+    }
+    if (!live) node.suppress_emit--;
+  }
+
+  void td_handle_message(EpochState& st, int proposer, std::shared_ptr<Td> td,
+                         int sender, const EMsg& m) {
+    if (td->terminated) return;
+    if (!is_val(sender)) {
+      ops.fault(sender, F_TD_NONVAL);
+      return;
+    }
+    if (td->seen.has(sender)) {
+      ops.fault(sender, F_TD_DUP);
+      return;
+    }
+    td->seen.add(sender);
+    if (e.ext) {
+      std::shared_ptr<const Bytes> share_b =
+          m.share_b ? m.share_b : std::make_shared<const Bytes>();
+      if (td->ct_valid) {
+        td_submit_share_ext(node.era, st.epoch, proposer, td, sender, share_b);
+      } else {
+        td->buffered_b.push_back({sender, *share_b});
+      }
+      return;
+    }
+    if (td->ct_valid) {
+      td_submit_share(node.era, st.epoch, proposer, td, sender, m.share);
+    } else {
+      td->buffered.push_back({sender, m.share});
+    }
+  }
+
+  void td_try_output(Td& td, std::vector<BytesP>& plain_out) {
+    int threshold = f();
+    size_t have = e.ext ? td.verified_b.size() : td.verified.size();
+    if (td.terminated || (int)have < threshold + 1) return;
+    if (e.ext) {
+      std::vector<std::pair<int, const Bytes*>> by_index;
+      for (auto& kv : td.verified_b)
+        by_index.push_back({node.val_index[kv.first], &kv.second});
+      std::sort(by_index.begin(), by_index.end(),
+                [](auto& a, auto& b) { return a.first < b.first; });
+      by_index.resize(threshold + 1);
+      e.cur_comb.clear();
+      for (auto& kv : by_index) e.cur_comb.push_back({kv.first, kv.second});
+      Bytes plain;
+      e.combine_cb(node.id, node.era, 1,
+                   (const uint8_t*)td.ct_payload->data(),
+                   td.ct_payload->size(), (int32_t)e.cur_comb.size(), &plain);
+      e.cur_comb.clear();
+      BytesP pp = std::make_shared<const Bytes>(std::move(plain));
+      td.plaintext = pp;
+      td.terminated = true;
+      plain_out.push_back(std::move(pp));
+      return;
+    }
+    std::vector<std::pair<int, U256>> by_index;
+    by_index.reserve(td.verified.size());
+    for (auto& kv : td.verified)
+      by_index.push_back({node.val_index[kv.first], kv.second});
+    std::sort(by_index.begin(), by_index.end(),
+              [](auto& a, auto& b) { return a.first < b.first; });
+    by_index.resize(threshold + 1);
+    std::vector<int> idxs;
+    idxs.reserve(by_index.size());
+    for (auto& kv : by_index) idxs.push_back(kv.first);
+    // shared_ptr held across the sum — see ts_try_output's combine.
+    uint64_t tk0 = prof_tick();
+    std::shared_ptr<const std::vector<U256>> lam_p = lagrange_cached(idxs);
+    const std::vector<U256>& lam = *lam_p;
+    // thread_local scratch inside the timed window — see ts_try_output.
+    static thread_local std::vector<U256> shs;
+    shs.resize(by_index.size());
+    for (size_t i = 0; i < by_index.size(); ++i) shs[i] = by_index[i].second;
+    U256 acc;
+    hbf::dot_batch(lam[0].w, shs[0].w, shs.size(), acc.w);
+    if (!e.mt_active) {
+      // Slot 14 (registry: SIMD combine-kernel wall) — see ts_try_output.
+      e.prof_cycles[14] += prof_tick() - tk0;
+      e.prof_count[14]++;
+    }
+    uint8_t acc_be[32];
+    u256_to_be32(acc, acc_be);
+    Root key;
+    std::memcpy(key.data(), acc_be, 32);
+    size_t need = td.ct.v.size();
+    Bytes mt_mask_copy;  // multicore: hold a copy (eviction can race)
+    const Bytes* mask_p = nullptr;
+    {
+      std::lock_guard<std::mutex> lk(e.cache_mu);
+      auto it = e.mask_by_acc.find(key);
+      if (it == e.mask_by_acc.end() || it->second.size() < need) {
+        Bytes seed = canon2("kem", Bytes((const char*)acc_be, 32));
+        Bytes mask = kdf_stream(seed, need);
+        if (it == e.mask_by_acc.end()) {
+          it = e.mask_by_acc.emplace(key, std::move(mask)).first;
+          e.mask_order.push_back(key);
+          if (e.mask_order.size() > MASK_CACHE_MAX) {
+            e.mask_by_acc.erase(e.mask_order.front());
+            e.mask_order.pop_front();
+          }
+        } else {
+          it->second = std::move(mask);
+        }
+      }
+      if (e.mt_active) {
+        mt_mask_copy = it->second;
+        mask_p = &mt_mask_copy;
+      } else {
+        mask_p = &it->second;  // single-thread: no eviction can intervene
+      }
+    }
+    const Bytes& mask = *mask_p;
+    Bytes plain = td.ct.v;
+    // word-wise XOR via raw pointers (the indexed std::string loop
+    // cannot vectorize and dominated big-ciphertext combines)
+    char* p = &plain[0];
+    const char* m = mask.data();
+    size_t sz = plain.size(), i = 0;
+    for (; i + 8 <= sz; i += 8) {
+      uint64_t a, b;
+      std::memcpy(&a, p + i, 8);
+      std::memcpy(&b, m + i, 8);
+      a ^= b;
+      std::memcpy(p + i, &a, 8);
+    }
+    for (; i < sz; ++i) p[i] ^= m[i];
+    BytesP pp = std::make_shared<const Bytes>(std::move(plain));
+    td.plaintext = pp;
+    td.terminated = true;
+    plain_out.push_back(std::move(pp));
+  }
+
+  // ---- HoneyBadger epoch state / advance ----------------------------------
+
+  // honey_badger._EpochState._on_decrypt_step: ciphertext_invalid check
+  // then plaintext outputs -> _accept_plaintext.  Runs only when the
+  // (era, epoch) is live (the _guard_epoch wrap).
+  void hb_on_decrypt_boundary(int proposer, std::shared_ptr<Td> td,
+                              std::vector<BytesP>& plain_out) {
+    EpochState& st = node.hb.state;
+    if (!plain_out.empty())
+      trace_emit(e, node.id, TR_DECRYPT_DONE, node.era, st.epoch, proposer, 0);
+    if (td->ciphertext_invalid && !st.faulty_proposers.has(proposer)) {
+      st.faulty_proposers.add(proposer);
+      ops.fault(proposer, F_HB_BAD_CT);
+      hb_try_batch(st);
+    }
+    for (BytesP& p : plain_out) hb_accept_plaintext(st, proposer, p);
+    plain_out.clear();
+  }
+
+  void hb_accept_plaintext(EpochState& st, int proposer, const BytesP& data) {
+    if (st.decrypted.has(proposer) || st.faulty_proposers.has(proposer)) return;
+    int ok = 1;
+    if (e.contrib_cb) {
+      // (Slot 15 retired its round-6 contrib_cb stamp for the arena
+      // stats — see hb_reset_state and the slot registry.)
+      ok = e.contrib_cb(node.id, node.era, st.epoch, proposer,
+                        (const uint8_t*)data->data(), data->size());
+    }
+    if (!ok) {
+      st.faulty_proposers.add(proposer);
+      ops.fault(proposer, F_HB_BAD_CONTRIB);
+    } else {
+      st.decrypted.add(proposer);
+      st.plaintexts[proposer] = data;
+    }
+    hb_try_batch(st);
+  }
+
+  void hb_try_batch(EpochState& st) {
+    if (st.batch_emitted || !st.subset_done) return;
+    for (int p : st.accepted_order)
+      if (!st.decrypted.has(p) && !st.faulty_proposers.has(p)) return;
+    st.batch_emitted = true;
+    BatchData bd;
+    bd.era = node.era;
+    bd.epoch = st.epoch;
+    std::vector<int> ids;
+    for (int p = 0; p < (int)st.plaintexts.size(); ++p)
+      if (st.plaintexts[p]) ids.push_back(p);
+    ids = str_sorted(ids);
+    for (int p : ids) bd.contributions.push_back({p, st.plaintexts[p]});
+    trace_emit(e, node.id, TR_EPOCH_COMMIT, node.era, st.epoch,
+               (int32_t)bd.contributions.size(), 0);
+    node.pending_batches.push_back(std::move(bd));
+  }
+
+  void hb_drain_subset_outputs(EpochState& st) {
+    // Process in order; handlers may not append new subset outputs, but
+    // index-walk anyway for safety.
+    for (size_t i = 0; i < st.pending_outputs.size(); ++i) {
+      SubsetOutItem out = st.pending_outputs[i];
+      if (out.done) {
+        st.subset_done = true;
+        // all_at_end: start every deferred decrypt now, in acceptance
+        // order (honey_badger._on_subset_output "done" branch).
+        std::vector<std::pair<int, BytesP>> pend;
+        pend.swap(st.pending_payloads);
+        for (auto& pv : pend) hb_start_decrypt(st, pv.first, pv.second);
+        hb_try_batch(st);
+      } else {
+        st.accepted_order.push_back(out.proposer);
+        if (node.hb.subset_handling == 1) {
+          st.pending_payloads.push_back({out.proposer, out.value});
+        } else {
+          hb_start_decrypt(st, out.proposer, out.value);
+        }
+      }
+    }
+    st.pending_outputs.clear();
+  }
+
+  void hb_start_decrypt(EpochState& st, int proposer, const BytesP& payload) {
+    if (!st.encrypted) {
+      hb_accept_plaintext(st, proposer, payload);
+      return;
+    }
+    trace_emit(e, node.id, TR_DECRYPT_START, node.era, st.epoch, proposer, 0);
+    if (e.ext) {
+      // serde decode verdict comes from Python (identical to
+      // honey_badger._start_decrypt's try_loads gate).
+      int ok = e.ct_parse_cb
+                   ? e.ct_parse_cb(node.id, (const uint8_t*)payload->data(),
+                                   payload->size())
+                   : 0;
+      if (!ok) {
+        st.faulty_proposers.add(proposer);
+        ops.fault(proposer, F_HB_BAD_CT);
+        hb_try_batch(st);
+        return;
+      }
+      auto td = hb_get_decrypt(st, proposer);
+      td_handle_input_ext(st, proposer, td, payload);
+      return;
+    }
+    ScalarCiphertext ct;
+    if (!decode_scalar_ciphertext((const uint8_t*)payload->data(),
+                                  payload->size(), ct)) {
+      st.faulty_proposers.add(proposer);
+      ops.fault(proposer, F_HB_BAD_CT);
+      hb_try_batch(st);
+      return;
+    }
+    auto td = hb_get_decrypt(st, proposer);
+    td_handle_input(st, proposer, td, ct, payload);
+    // _on_decrypt_step boundary after handle_input (no outputs possible,
+    // ciphertext_invalid not yet known — verification is deferred).
+  }
+
+  // Reset-in-place successor of the round-2..4 hb_make_state (which
+  // heap-allocated a fresh EpochState per epoch): the same object and
+  // its proposals array are recycled — fresh-state semantics come from
+  // the exhaustive per-field resets (EpochState::reset_for_epoch +
+  // Proposal::reset), pinned by the native equivalence suites.
+  void hb_reset_state(EpochState& st, int epoch) {
+    trace_emit(e, node.id, TR_EPOCH_OPEN, node.era, epoch, 0, 0);
+    st.reset_for_epoch();
+    st.epoch = epoch;
+    st.encrypted = node.hb.encrypt_on(epoch);
+    Bytes ss;
+    canon_append(ss, node.hb.session_id);
+    canon_append(ss, canon_int_bytes((uint64_t)epoch));
+    st.subset_session = ss;
+    st.proposals.resize(e.n);
+    st.decrypts.resize(e.n);
+    st.plaintexts.resize(e.n);
+    node.hb.future.resize((size_t)node.hb.max_future_epochs + 1);
+    node.hb.future_per_sender.resize(e.n, 0);
+    for (Proposal& p : st.proposals) p.reset();
+    // THE arena reset: every FlatMap above was dropped by
+    // Proposal::reset, so the epoch's flat state is reclaimed by one
+    // watermark move (blocks poisoned between epochs under ASan).
+    // epoch_pins releases the ProofData ownership the echos maps
+    // borrowed.  Slot 15 (registry): arena stats — cycles = max
+    // per-node high-water mark (bytes), count = resets.
+    node.arena.reset(e.arena_recycle);
+    node.epoch_pins.clear();
+    if (!e.mt_active) {
+      if ((uint64_t)node.arena.hwm > e.prof_cycles[15])
+        e.prof_cycles[15] = node.arena.hwm;
+      e.prof_count[15]++;
+    }
+    for (int pid : node.val_ids) {
+      Proposal& p = st.proposals[pid];
+      p.bc.proposer = pid;
+      p.bc.data_shards = n() - 2 * f();
+      Bytes bs;
+      canon_append(bs, "subset-ba");
+      canon_append(bs, ss);
+      canon_append(bs, std::to_string(pid));
+      p.ba.session_id = bs;
+      p.ba.sbv = Sbv(n(), f());
+      Ctx::ba_make_coin_static(p.ba);
+    }
+  }
+
+  static void ba_make_coin_static(Ba& ba) {
+    auto ts = std::make_shared<Ts>();
+    Bytes doc;
+    canon_append(doc, "aba-coin");
+    canon_append(doc, ba.session_id);
+    canon_append(doc, canon_int_bytes((uint64_t)ba.round));
+    ts->doc_h = hash_to_g2(doc);
+    ts->doc = std::move(doc);  // external mode signs/verifies the raw doc
+    ba.coin = ts;
+  }
+
+  void hb_advance() {
+    Hb& hb = node.hb;
+    while (hb.state.batch_emitted) {
+      hb.epoch += 1;
+      if (!e.mt_active) {
+        // Slot 13 (registry, round 7): epoch-advance wall — recycling
+        // the whole per-epoch state (N Proposal resets: map teardowns,
+        // container clears) plus N fresh coin setups (hash_to_g2 per
+        // proposer).  This belongs to no message type, yet it used to
+        // be billed to whichever COIN/DECRYPT delivery happened to
+        // complete the epoch — at N=300 it was ~2/3 of those slots'
+        // cycles (the bulk of the old >1M "continuation tail" this
+        // slot measured before round 7).  Borrowed out of the
+        // enclosing typed stamp like replays (Engine::replay_borrow).
+        uint64_t t0 = prof_tick();
+        hb_reset_state(hb.state, hb.epoch);
+        uint64_t dt = prof_tick() - t0;
+        e.prof_cycles[13] += dt;
+        e.prof_count[13]++;
+        e.replay_borrow += dt;
+      } else {
+        hb_reset_state(hb.state, hb.epoch);
+      }
+      std::vector<std::pair<int, EMsg>> replay;
+      replay.swap(hb.future[(size_t)hb.epoch % hb.future.size()]);
+      for (auto& sm : replay) {
+        // absent == 0 under the old map semantics, so >1-decrement /
+        // ==1-erase collapses to a floor-at-zero decrement.
+        int32_t& fc = hb.future_per_sender[sm.first];
+        if (fc > 0) fc -= 1;
+        // typed re-attribution — see ba_next_round's replay loop
+        if (!e.mt_active) {
+          uint64_t t0 = prof_tick();
+          uint64_t b0 = e.replay_borrow;
+          hb_state_dispatch(sm.first, sm.second);
+          uint64_t inner = e.replay_borrow - b0;
+          uint64_t own = prof_tick() - t0 - inner;
+          e.prof_cycles[sm.second.type & 15] += own;
+          e.replay_borrow = b0 + inner + own;
+        } else {
+          hb_state_dispatch(sm.first, sm.second);
+        }
+      }
+    }
+  }
+
+  void hb_state_dispatch(int sender, const EMsg& m) {
+    EpochState& st = node.hb.state;
+    if (m.type == HB_DECRYPT) {
+      if (!st.encrypted) {
+        ops.fault(sender, F_HB_BAD_CT);
+        return;
+      }
+      // Python: is_node_validator(msg.proposer) else fault the sender.
+      if (m.proposer < 0 || m.proposer >= e.n || !is_val(m.proposer)) {
+        ops.fault(sender, F_HB_BAD_CT);
+        return;
+      }
+      auto td = hb_get_decrypt(st, m.proposer);
+      td_handle_message(st, m.proposer, td, sender, m);
+      // _on_decrypt_step boundary: invalid-ct check after every td call.
+      std::vector<BytesP> none;
+      hb_on_decrypt_boundary(m.proposer, td, none);
+      return;
+    }
+    subset_handle_message(st, sender, m);
+    hb_drain_subset_outputs(st);
+  }
+
+  void hb_handle_message(int sender, const EMsg& m) {
+    Hb& hb = node.hb;
+    if (m.epoch < hb.epoch) return;
+    if (m.epoch > hb.epoch + hb.max_future_epochs) {
+      ops.fault(sender, F_HB_FUTURE);
+      return;
+    }
+    if (m.epoch > hb.epoch) {
+      int cap = FUTURE_BUFFER_FACTOR * (hb.max_future_epochs + 1) *
+                (n() > 1 ? n() : 1);
+      int buffered = hb.future_per_sender[sender];
+      if (buffered >= cap) {
+        ops.fault(sender, F_HB_FLOOD);
+        return;
+      }
+      hb.future_per_sender[sender] = buffered + 1;
+      hb.future[(size_t)m.epoch % hb.future.size()].push_back({sender, m});
+      return;
+    }
+    hb_state_dispatch(sender, m);
+    hb_advance();
+  }
+
+  void hb_propose(const Bytes& payload) {
+    EpochState& st = node.hb.state;
+    if (st.proposed) return;
+    st.proposed = true;
+    subset_input(st, std::make_shared<const Bytes>(payload));
+    hb_drain_subset_outputs(st);
+    hb_advance();
+  }
+
+  // ---- DHB-level era gating (deliver path) --------------------------------
+
+  void deliver(int sender, const EMsg& m) {
+    if (m.era < node.era) return;
+    if (m.era > node.era + 1) {
+      ops.fault(sender, F_DHB_FUTURE_ERA);
+      return;
+    }
+    if (m.era == node.era + 1) {
+      if ((int)node.next_era_buffer.size() < FUTURE_ERA_BUFFER)
+        node.next_era_buffer.push_back({sender, m});
+      return;
+    }
+    hb_handle_message(sender, m);
+  }
+
+  // ---- batch-event delivery (fires Python callbacks) ----------------------
+
+  void commit_events() {
+    while (!node.pending_batches.empty()) {
+      BatchData bd = std::move(node.pending_batches.front());
+      node.pending_batches.erase(node.pending_batches.begin());
+      // cur_batch is engine-global (the hbe_batch_* accessors read it
+      // during the callback); cb_mu serializes concurrent workers'
+      // batch events.  Recursive: the callback may propose, which
+      // re-enters here on the same thread.
+      std::lock_guard<std::recursive_mutex> lk(e.cb_mu);
+      e.cur_batch = bd.contributions;
+      if (e.batch_cb) {
+        // Slot 12: cycles spent inside the Python batch callback — the
+        // per-batch DKG/decrypt tail the round-5 envelope profile
+        // pinned (92% of continuation cycles; CLAUDE.md).  Outermost
+        // invocations only (batch_cb_depth), so nested proposals'
+        // batches are not double-counted.
+        uint64_t t0 = prof_tick();
+        e.batch_cb_depth++;
+        e.batch_cb(node.id, bd.era, bd.epoch);
+        e.batch_cb_depth--;
+        if (!e.mt_active) {
+          if (e.batch_cb_depth == 0) {
+            uint64_t dt = prof_tick() - t0;
+            e.prof_cycles[12] += dt;
+            e.prof_count[12]++;
+            // Batch-boundary work is not share work: borrow it out of
+            // the enclosing typed stamp (Engine::replay_borrow), like
+            // the epoch-advance wall.
+            e.replay_borrow += dt;
+          }
+        }
+      }
+    }
+  }
+};
+
+// ===========================================================================
+// Top-level engine driving
+// ===========================================================================
+
+// Verify one CSR-indexed group (flush_every=1 bursts) through the
+// shared RLC core.
+inline void rlc_verify_group(std::vector<Pending>& items, const uint32_t* gi,
+                             size_t gs) {
+  RlcInstance in = rlc_instance(items[gi[0]]);
+  CsrView v{items, gi};
+  rlc_verify_range_v(in, v, 0, gs);
+}
+
+// Flat (CSR) group layout, reused across a flush's swap rounds: group
+// g's item indices are idx[start[g] .. start[g+1]) in pool order (the
+// per-group std::vector form paid one small heap alloc per group —
+// measurable against the mulmods being amortized).
+struct RlcGroups {
+  std::vector<int32_t> group_of;  // item -> group id, -1 = not deferred
+  std::vector<uint32_t> idx;      // item indices, grouped, pool order
+  std::vector<uint32_t> start;    // ngroups+1 offsets into idx
+  std::vector<std::pair<uintptr_t, int32_t>> table;  // ptr -> gid scratch
+  size_t ngroups = 0;
+  void reset() {
+    group_of.clear();
+    idx.clear();
+    start.clear();
+    ngroups = 0;
+  }
+  const uint32_t* items_of(size_t g) const { return idx.data() + start[g]; }
+  size_t size_of(size_t g) const { return start[g + 1] - start[g]; }
+  uint32_t leader_of(size_t g) const { return idx[start[g]]; }
+};
+
+// Group the drained items' deferred entries per Ts/Td instance (pool
+// order preserved within each group) and compute every verdict.  All
+// scratch lives in the caller's RlcGroups (stack-rooted per flush), so
+// this is safe from engine_run_mt workers without locks — the shared
+// inputs (pk_shares, doc_h/ct_h) are node-local or instance-pinned.
+// Used at flush_every=1 only: the deferred cadence forms groups at
+// SUBMIT time instead (Pending::grp) and never reaches this pass.
+void scalar_rlc_verdicts(Engine& e, std::vector<Pending>& items,
+                         RlcGroups& gr) {
+  uint32_t deferred = 0, first = 0;
+  for (uint32_t i = 0; i < items.size(); ++i) {
+    if (items[i].rlc_defer) {
+      if (!deferred) first = i;
+      ++deferred;
+    }
+  }
+  if (!deferred) return;
+  // Deferred flushes run outside engine_run's typed delivery stamp, so
+  // the group-check cycles are folded into the COIN/DECRYPT typed
+  // slots per group (same honesty rule as the continuation stamps in
+  // engine_flush_pool — without it the RLC arm's cyc/delivery would
+  // simply EXCLUDE its verification cost).  At flush_every=1 the pass
+  // runs inside the delivering unit's typed stamp already.
+  uint64_t coin_cyc = 0, dec_cyc = 0;
+  uint64_t t0 = prof_tick();
+  size_t ngroups = 0;
+  if (deferred == 1) {
+    // Fast path — the dominant case at flush_every=1 (one share per
+    // delivered message): no grouping scratch, just the direct check.
+    items[first].pre_ok = rlc_check_one(items[first]);
+    ngroups = 1;
+    uint64_t dt = prof_tick() - t0;
+    if (items[first].cont == CONT_TS)
+      coin_cyc = dt;
+    else
+      dec_cyc = dt;
+  } else {
+    gr.group_of.assign(items.size(), -1);
+    // Open-addressing map from instance pointer to group id (pools at
+    // queue-dry flushes hold thousands of items across hundreds of
+    // instances; a tree map's alloc-per-node is measurable there).
+    size_t cap = 1;
+    while (cap < (size_t)deferred * 2) cap <<= 1;
+    gr.table.assign(cap, {0, -1});
+    gr.start.assign(1, 0);  // reused as per-group counts below
+    for (uint32_t i = 0; i < items.size(); ++i) {
+      Pending& p = items[i];
+      if (!p.rlc_defer) continue;
+      uintptr_t key = p.cont == CONT_TS ? (uintptr_t)p.ts.get()
+                                        : (uintptr_t)p.td.get();
+      size_t slot = (size_t)rlc_mix(key) & (cap - 1);
+      while (gr.table[slot].first != 0 && gr.table[slot].first != key)
+        slot = (slot + 1) & (cap - 1);
+      if (gr.table[slot].first == 0) {
+        gr.table[slot] = {key, (int32_t)gr.start.size() - 1};
+        gr.start.push_back(0);
+      }
+      gr.group_of[i] = gr.table[slot].second;
+      gr.start[(size_t)gr.table[slot].second + 1]++;
+    }
+    ngroups = gr.ngroups = gr.start.size() - 1;
+    for (size_t g = 1; g <= ngroups; ++g) gr.start[g] += gr.start[g - 1];
+    gr.idx.resize(deferred);
+    {
+      // fill cursor per group, then restore start[] by shifting back
+      std::vector<uint32_t>& cur = gr.start;
+      for (uint32_t i = 0; i < items.size(); ++i) {
+        int32_t g = gr.group_of[i];
+        if (g >= 0) gr.idx[cur[(size_t)g]++] = i;
+      }
+      for (size_t g = ngroups; g > 0; --g) cur[g] = cur[g - 1];
+      cur[0] = 0;
+    }
+    for (size_t g = 0; g < ngroups; ++g) {
+      size_t gs = gr.size_of(g);
+      uint64_t g0 = prof_tick();
+      const uint32_t* gi = gr.items_of(g);
+      rlc_verify_group(items, gi, gs);
+      if (items[gi[0]].cont == CONT_TS)
+        coin_cyc += prof_tick() - g0;
+      else
+        dec_cyc += prof_tick() - g0;
+    }
+  }
+  if (!e.mt_active) {
+    // Slot 11 (registry: scalar RLC group stats): cycles = verdict-pass
+    // wall, count = groups checked (singletons included).
+    e.prof_cycles[11] += prof_tick() - t0;
+    e.prof_count[11] += ngroups;
+    if (e.in_deferred_flush) {
+      e.prof_cycles[BA_COIN] += coin_cyc;
+      e.prof_cycles[HB_DECRYPT] += dec_cyc;
+    }
+  }
+}
+
+// Flat-continuation dispatch (see Pending): the three verified-callback
+// targets, constructed without a per-entry std::function allocation.
+void pending_run(Engine& e, Node& node, Pending& p, bool ok) {
+  Ctx c(e, node);
+  switch (p.cont) {
+    case CONT_TS:
+      c.ts_verified_cb(p.era, p.epoch, p.proposer, p.rnd, p.ts, p.sender,
+                       p.share, p.share_b, ok);
+      break;
+    case CONT_TD_CT:
+      c.td_ct_checked_cb(p.era, p.epoch, p.proposer, p.td, ok);
+      break;
+    case CONT_TD_SHARE:
+      c.td_verified_cb(p.era, p.epoch, p.proposer, p.td, p.sender, p.share,
+                       p.share_b, ok);
+      break;
+  }
+  c.commit_events();
+}
+
+// Folded dispatch for one submit-time RLC group (scalar deferred
+// mode): one Ctx, one lift, one commit_events for the whole group.
+void pending_run_grp(Engine& e, Node& node, Pending& lead) {
+  Ctx c(e, node);
+  if (lead.cont == CONT_TS)
+    c.ts_group_verified_cb(lead.era, lead.epoch, lead.proposer, lead.rnd,
+                           lead.ts, lead);
+  else
+    c.td_group_verified_cb(lead.era, lead.epoch, lead.proposer, lead.td,
+                           lead);
+  c.commit_events();
+}
+
+void engine_flush_pool(Engine& e, Node& node) {
+  // Scalar mode.  Same swap-rounds semantics as always (a nested flush
+  // — batch callback proposing into a nested engine_unit — sees only
+  // its own fresh entries), but the drain buffer is a PER-NODE scratch
+  // whose capacity survives across flushes: the round-2..4 form
+  // constructed and destructed a std::vector per flush, one alloc+free
+  // per share-carrying delivery — pure COIN-envelope overhead.  The
+  // nested case (node.flushing already set) takes a local vector so the
+  // outer frame's scratch is never clobbered.
+  bool outer = !node.flushing;
+  std::vector<Pending> local;
+  std::vector<Pending>& items = outer ? node.flush_scratch : local;
+  if (outer) node.flushing = true;
+  // Group continuations are folded ONLY under the deferred cadence:
+  // at flush_every=1 the per-item dispatch keeps the continuation
+  // stream byte-identical to the Python VirtualNet's (the fidelity
+  // contract); deferred flushes are pinned at the output level instead
+  // (tests/test_native_rlc.py), where the fold is observationally
+  // equivalent (ts_group_verified_cb notes).
+  bool fold = scalar_deferred(e);
+  RlcGroups gr;
+  while (!node.pool.empty()) {
+    items.swap(node.pool);
+    // New swap-round: open groups on the old pool are now sealed (the
+    // submit sites key off pool_round — Ts::grp_round notes).
+    node.pool_round++;
+    e.pool_items -= items.size();
+    gr.reset();
+    if (e.rlc && !e.ext && !fold) scalar_rlc_verdicts(e, items, gr);
+    for (uint32_t i = 0; i < items.size(); ++i) {
+      Pending& p = items[i];
+      uint64_t t0 = prof_tick();
+      uint64_t b0 = e.replay_borrow;  // lint: st-only (read; guarded writes)
+      if (fold && p.rlc_defer) {
+        // Submit-time group: verdicts are streamed off the contiguous
+        // grp array in chunks AS the folded continuation consumes
+        // shares (lead_verify_chunk) — shares past termination are
+        // never verified, exactly like the per-share path.
+        pending_run_grp(e, node, p);
+        if (!e.mt_active) {
+          // Slot 11 (registry): groups dispatched; chunk-check cycles
+          // are inside the typed continuation stamps below.
+          e.prof_count[11]++;
+          e.prof_cycles[11] += prof_tick() - t0;
+        }
+      } else {
+        pending_run(e, node, p, p.pre_ok);
+      }
+      // (The round-4 slot-14 pool-flush total was retired in round 15 —
+      // the slot now stamps the combine kernel at ts/td_try_output; the
+      // typed fold below still carries the continuation wall.)
+      if (!e.mt_active) {  // profiling counters are single-writer only
+        uint64_t dt = prof_tick() - t0;
+        if (e.in_deferred_flush) {
+          // Deferred flushes run outside engine_run's typed delivery
+          // stamp: fold the verification + continuation cycles back
+          // into the delivering message type so COIN/DECRYPT
+          // cyc/delivery stays comparable across the HBBFT_TORCH_COIN_RLC
+          // A/B (counts are already ticked at delivery; cycles only
+          // here).  Own-time only — replays inside the continuation
+          // stamped their own types (Engine::replay_borrow).
+          uint64_t own = dt - (e.replay_borrow - b0);
+          if (p.cont == CONT_TS)
+            e.prof_cycles[BA_COIN] += own;
+          else if (p.cont == CONT_TD_SHARE)
+            e.prof_cycles[HB_DECRYPT] += own;
+        }
+      }
+    }
+    items.clear();
+  }
+  if (outer) node.flushing = false;
+}
+
+// Deferred-cadence scalar flush: drain every node's pool in sorted-id
+// order, in rounds (continuations may refill any pool) — the scalar
+// twin of engine_flush_ext / VirtualNet._flush_all_pools.
+void engine_flush_scalar(Engine& e) {
+  if (e.in_flush) return;  // re-entrancy (a propose inside a batch cb)
+  e.in_flush = true;
+  e.in_deferred_flush = true;
+  e.since_flush = 0;
+  std::vector<int32_t> batch;
+  while (!e.dirty_nodes.empty()) {
+    batch.swap(e.dirty_nodes);
+    std::sort(batch.begin(), batch.end());
+    for (int32_t nid : batch) {
+      Node& node = e.nodes[nid];
+      node.pool_dirty = false;  // re-pushes during the flush re-queue it
+      if (!node.pool.empty()) engine_flush_pool(e, node);
+    }
+    batch.clear();
+  }
+  e.in_deferred_flush = false;
+  e.in_flush = false;
+}
+
+// External-crypto flush: mirrors VirtualNet._flush_all_pools — visit
+// nodes with pending requests in sorted-id order; per node, drain the
+// pool in rounds (one verify-batch callback per round, continuations in
+// submission order; continuations may refill the pool).
+void engine_flush_ext_node(Engine& e, Node& node);
+
+void engine_flush_ext(Engine& e) {
+  if (e.in_flush) return;  // re-entrancy (a propose inside a batch cb)
+  if (e.aborted) return;  // [port]
+  e.in_flush = true;
+  e.since_flush = 0;
+  bool any = true;
+  while (any) {
+    any = false;
+    for (int nid = 0; nid < e.n; ++nid) {
+      Node& node = e.nodes[nid];
+      if (!node.pool.empty()) {
+        any = true;
+        engine_flush_ext_node(e, node);
+      }
+      if (e.aborted) { any = false; break; }  // [port]
+    }
+  }
+  e.in_flush = false;
+}
+
+// Python's VirtualNet increments its flush counter once per delivered
+// message / top-level input; flushing resets it.  Round 7: the scalar
+// RLC deferred cadence ticks the same counter (engine_flush_scalar in
+// place of the ext verify-batch flush).
+inline void engine_count_unit(Engine& e) {
+  if (e.in_flush) return;
+  if (!e.ext && !scalar_deferred(e)) return;
+  e.since_flush++;
+  if (e.flush_every > 0 && e.since_flush >= (uint64_t)e.flush_every) {
+    // Python's _flush_all_pools resets the counter even when no pool is
+    // dirty; skip the N-node scan in that (overwhelmingly common) case.
+    if (e.pool_items > 0) {
+      if (e.ext)
+        engine_flush_ext(e);
+      else
+        engine_flush_scalar(e);
+    } else {
+      e.since_flush = 0;
+    }
+  }
+}
+
+// Ext-mode eager flush of ONE node's pool: drain in rounds (one
+// verify-batch callback per round, continuations in submission order;
+// continuations may refill the pool).  Used by engine_flush_ext for
+// every node and directly for tampered nodes (VirtualNet's
+// TamperingAdversary drains the faulty node's own pool inside _drive,
+// independent of the global flush cadence).
+void engine_flush_ext_node(Engine& e, Node& node) {
+  while (!node.pool.empty()) {
+    if (e.aborted) return;  // [port]
+    std::vector<Pending> items;
+    items.swap(node.pool);
+    e.pool_items -= items.size();
+    std::vector<uint8_t> verdicts;
+    int need = 0;
+    for (Pending& p : items)
+      if (p.need_verdict) ++need;
+    if (need) {
+      e.cur_vreqs.clear();
+      for (Pending& p : items)
+        if (p.need_verdict) e.cur_vreqs.push_back(&p.req);
+      verdicts.assign(need, 0);
+      e.verify_cb(node.id, need, verdicts.data());
+      e.cur_vreqs.clear();
+      if (e.aborted) return;  // [port] no verdict of a failed flush is acted on
+    }
+    int vi = 0;
+    for (Pending& p : items)
+      pending_run(e, node, p, p.need_verdict ? verdicts[vi++] != 0 : p.pre_ok);
+  }
+}
+
+void engine_unit(Engine& e, Node& node, const std::function<void(Ctx&)>& fn) {
+  // One top-level processing unit: handler, then batch events, then the
+  // eager pool flush (each flush callback fires its own events).  Under
+  // the scalar deferred cadence (round 7) pools accumulate across units
+  // and drain via engine_flush_scalar — except tampered nodes, whose
+  // own pool always drains eagerly (VirtualNet's TamperingAdversary
+  // flushes the faulty node inside _drive, independent of cadence).
+  e.depth++;
+  Ctx ctx(e, node);
+  fn(ctx);
+  ctx.commit_events();
+  if (!e.ext) {
+    if (!scalar_deferred(e) || node.tampered) engine_flush_pool(e, node);
+  } else if (node.tampered) {
+    engine_flush_ext_node(e, node);
+  }
+  e.depth--;
+  // Cluster mode: announce after each OUTERMOST unit, mirroring
+  // SenderQueue._post's current-epoch check at the end of every handled
+  // step (nested units — era restarts, proposals from batch callbacks —
+  // land inside the outer unit, exactly like Python's nested steps).
+  if (e.depth == 0) cluster_announce(e);
+}
+
+// ---------------------------------------------------------------------------
+// Multicore generation-parallel scheduler (round 5; SURVEY §5.8's sharded
+// delivery queue).
+//
+// WHY this is byte-identical to the sequential FIFO loop:
+//   * Sequential FIFO processing is breadth-first by GENERATIONS: every
+//     message in the current queue is processed before any message it
+//     emitted (emissions append at the tail).
+//   * Within a generation, deliveries to DIFFERENT nodes touch disjoint
+//     mutable state: all protocol state is per-Node; the only shared
+//     structures are pure-function caches (decoded_roots, the KDF mask
+//     cache, Lagrange coefficients — mutex-guarded; cache-content
+//     differences can only change WORK, never verdicts) and the
+//     Python-callback staging area (cb_mu-serialized; the Python side
+//     keys everything by node with per-node rngs, so cross-node
+//     callback order is output-invariant).
+//   * Deliveries to the SAME node run in their original queue order on
+//     one worker, preserving each node's exact sequential transition
+//     sequence (scalar-mode pool flushes are per-unit and node-local;
+//     the round-7 RLC verdict pass runs inside that per-unit flush with
+//     STACK-LOCAL group accumulators/scratch over node-local inputs, so
+//     workers never share RLC state — the deferred cadence itself
+//     (flush_every != 1) is sequential-only and hbe_run_mt falls back).
+//   * Each delivery's emissions are captured in its own slot and
+//     spliced back in SOURCE-DELIVERY ORDER — exactly the order the
+//     sequential loop would have appended them.
+// Hence the global delivery sequence seen by every node — and therefore
+// every output, fault, and batch — is identical to engine_run's, which
+// the multicore equivalence tests pin.  Scalar mode only: external-
+// crypto flush cadence and adversary replay are inherently sequential
+// (the Python layer rejects those combinations).
+uint64_t engine_run_mt(Engine& e, uint64_t max_deliveries, int n_threads) {
+  uint64_t processed = 0;
+  e.mt_active = true;
+  std::vector<QItem> gen;
+  std::vector<std::vector<uint32_t>> by_dest(e.n);
+  while (processed < max_deliveries && !e.queue.empty()) {
+    uint64_t take = e.queue.size();
+    if (take > max_deliveries - processed) take = max_deliveries - processed;
+    gen.clear();
+    gen.reserve(take);
+    for (uint64_t i = 0; i < take; ++i) {
+      gen.push_back(std::move(e.queue.front()));
+      e.queue.pop_front();
+    }
+    std::vector<int> dests;  // distinct destinations, first-seen order
+    for (uint64_t i = 0; i < take; ++i) {
+      int d = gen[i].dest;
+      if (by_dest[d].empty()) dests.push_back(d);
+      by_dest[d].push_back((uint32_t)i);
+    }
+    std::vector<std::vector<QItem>> emitted(take);
+    std::atomic<size_t> next{0};
+    auto worker = [&]() {
+      for (;;) {
+        size_t di = next.fetch_add(1);
+        if (di >= dests.size()) return;
+        Node& node = e.nodes[dests[di]];
+        for (uint32_t idx : by_dest[dests[di]]) {
+          if (node.silent) continue;
+          node.handled++;
+          tl_emit_sink = &emitted[idx];
+          engine_unit(e, node, [&](Ctx& ctx) {
+            ctx.deliver(gen[idx].sender, *gen[idx].msg);
+          });
+          tl_emit_sink = nullptr;
+        }
+      }
+    };
+    if (n_threads <= 1 || dests.size() <= 1) {
+      worker();
+    } else {
+      // Spawn-per-generation keeps the scheduler trivially correct; a
+      // persistent pool with a start barrier would shave ~tens of us
+      // per generation on a real multicore host (noted as the obvious
+      // next step in BASELINE.md's round-5 multicore design note).
+      std::vector<std::thread> pool;
+      int spawn = n_threads;
+      if ((size_t)spawn > dests.size()) spawn = (int)dests.size();
+      for (int t = 1; t < spawn; ++t) pool.emplace_back(worker);
+      worker();
+      for (auto& th : pool) th.join();
+    }
+    // Sequential epilogue: delivered accounting + ordered splice.
+    for (uint64_t i = 0; i < take; ++i) {
+      if (!e.nodes[gen[i].dest].silent) e.delivered++;
+      for (QItem& q : emitted[i]) e.queue.push_back(std::move(q));
+    }
+    for (int d : dests) by_dest[d].clear();
+    processed += take;
+  }
+  e.mt_active = false;
+  return processed;
+}
+
+uint64_t engine_run(Engine& e, uint64_t max_deliveries) {
+  uint64_t processed = 0;
+  while (processed < max_deliveries) {
+    if (e.aborted) break;  // [port]
+    if (e.queue.empty()) {
+      // Idle: drain deferred verifications so progress can resume
+      // (VirtualNet.crank's empty-queue flush).
+      if ((e.ext || scalar_deferred(e)) && e.pool_items > 0 && !e.in_flush) {
+        if (e.ext)
+          engine_flush_ext(e);
+        else
+          engine_flush_scalar(e);
+        if (!e.queue.empty()) continue;
+      }
+      break;
+    }
+    if (e.pre_crank_cb) e.pre_crank_cb(e.queue.size());
+    QItem item = std::move(e.queue.front());
+    e.queue.pop_front();
+    ++processed;
+    Node& node = e.nodes[item.dest];
+    if (node.silent) continue;
+    // Adversary-owned (tampered) destinations mirror the VirtualNet's
+    // faulty path: the node runs the real algorithm, but the delivery
+    // neither counts toward `delivered` nor ticks the flush cadence
+    // (VirtualNet.crank returns before delivered+=1 / _maybe_flush).
+    if (!node.tampered) e.delivered++;
+    node.handled++;
+    uint64_t t0 = prof_tick();
+    uint64_t b0 = e.replay_borrow;  // lint: st-only (sequential driver)
+    engine_unit(e, node,
+                [&](Ctx& ctx) { ctx.deliver(item.sender, *item.msg); });
+    int ty = item.msg->type & 15;
+    // Own-time only: replayed future messages inside this unit already
+    // stamped their own typed slots (Engine::replay_borrow).
+    // lint: st-only (engine_run is the sequential driver, never a worker)
+    e.prof_cycles[ty] += prof_tick() - t0 - (e.replay_borrow - b0);
+    e.prof_count[ty] += 1;
+    if (!node.tampered) engine_count_unit(e);
+  }
+  cluster_announce(e);  // no-op outside cluster mode
+  return processed;
+}
+
+// ===========================================================================
+// Wire codec: EMsg <-> the serde wire grammar
+// mirror: wire-grammar (twin: hbbft_tpu/wire.py registration table —
+//     HBX001 diffs the tag sets; add/remove tags on BOTH sides)
+//
+// ENCODE produces the exact bytes Python's serde.dumps would emit for
+// SqMessage.algo(DhbMessage(era, HbMessage(...))) over the wire.py
+// registered codecs (canonical ints, ScalarG group id 1, struct layout)
+// — pinned by hbe_wire_roundtrip in the tests.  DECODE mirrors the
+// accept/reject behavior of serde.loads under the ScalarSuite pin plus
+// the wire.py unpackers for the whole SqMessage-reachable tree: a
+// payload is accepted iff Python's `serde.try_loads(data, ScalarSuite)`
+// yields an SqMessage (kind 3 covers codec-valid-but-non-engine values:
+// join plans, bare HbMessage algos — Python consumes and ignores/faults
+// those without committing anything).  Byte-level structure/limits come
+// from hbe_serde_scan with the same caller limits serde.py passes.
+// ===========================================================================
+
+struct WireDecoded {
+  int kind = 0;  // 1 epoch_started, 2 algo engine message, 3 other-accepted
+  int64_t era = 0, epoch = 0;  // epoch_started announce (saturated)
+  EMsg msg;                    // kind 2
+};
+
+inline void wenc_u32(Bytes& o, uint32_t v) {
+  o.push_back((char)(v >> 24));
+  o.push_back((char)(v >> 16));
+  o.push_back((char)(v >> 8));
+  o.push_back((char)v);
+}
+
+// Canonical non-negative int: 0x03, sign 0, minimal big-endian magnitude.
+inline void wenc_nonneg(Bytes& o, uint64_t v) {
+  uint8_t mag[8];
+  int l = 0;
+  while (v) {
+    mag[l++] = (uint8_t)(v & 0xff);
+    v >>= 8;
+  }
+  o.push_back('\x03');
+  o.push_back('\x00');
+  wenc_u32(o, (uint32_t)l);
+  for (int i = l - 1; i >= 0; --i) o.push_back((char)mag[i]);
+}
+
+inline void wenc_str(Bytes& o, const char* s) {
+  size_t l = std::strlen(s);
+  o.push_back('\x05');
+  wenc_u32(o, (uint32_t)l);
+  o.append(s, l);
+}
+
+inline void wenc_bytes(Bytes& o, const uint8_t* p, size_t l) {
+  o.push_back('\x04');
+  wenc_u32(o, (uint32_t)l);
+  o.append((const char*)p, l);
+}
+
+inline void wenc_tuple(Bytes& o, uint32_t count) {
+  o.push_back('\x06');
+  wenc_u32(o, count);
+}
+
+inline void wenc_struct(Bytes& o, const char* name) {
+  size_t l = std::strlen(name);
+  o.push_back('\x10');
+  o.push_back((char)l);
+  o.append(name, l);
+}
+
+inline void wenc_bool(Bytes& o, bool b) { o.push_back(b ? '\x02' : '\x01'); }
+
+inline void wenc_group(Bytes& o, const U256& v) {
+  // ScalarG.serde_group == 1 for BOTH G1- and G2-positioned elements
+  // (one group id in the scalar suite) — encode must match dumps.
+  o.push_back('\x11');
+  size_t l = sizeof(kScalarSuiteName) - 1;
+  o.push_back((char)l);
+  o.append(kScalarSuiteName, l);
+  o.push_back('\x01');
+  wenc_u32(o, 32);
+  uint8_t be[32];
+  u256_to_be32(v, be);
+  o.append((const char*)be, 32);
+}
+
+// sigshare/decshare: fields ("scalar-insecure", <group element>).
+inline void wenc_share_struct(Bytes& o, const char* name, const U256& v) {
+  wenc_struct(o, name);
+  wenc_tuple(o, 2);
+  wenc_str(o, kScalarSuiteName);
+  wenc_group(o, v);
+}
+
+// External-crypto mode carries shares as opaque bytes (EMsg::share_b);
+// the cluster wire grammar stays the scalar suite's 32-byte element, so
+// an ext-scalar share (ScalarG.to_bytes == 32B BE) re-encodes exactly.
+// Oversized/odd lengths (a tamper hook rewrote the bytes) truncate via
+// u256_from_be, matching what any 32-byte wire slot could carry anyway.
+inline void wenc_share_emsg(Bytes& o, const char* name, const EMsg& m) {
+  if (m.share_b)
+    wenc_share_struct(
+        o, name,
+        u256_from_be((const uint8_t*)m.share_b->data(), m.share_b->size()));
+  else
+    wenc_share_struct(o, name, m.share);
+}
+
+Bytes wire_encode_algo(const EMsg& m) {
+  Bytes o;
+  wenc_struct(o, "sqmsg");
+  wenc_tuple(o, 2);
+  wenc_str(o, "algo");
+  wenc_struct(o, "dhbmsg");
+  wenc_tuple(o, 2);
+  wenc_nonneg(o, (uint64_t)m.era);
+  wenc_struct(o, "hbmsg");
+  wenc_tuple(o, 4);
+  wenc_nonneg(o, (uint64_t)m.epoch);
+  if (m.type == HB_DECRYPT) {
+    wenc_str(o, "decrypt");
+    wenc_nonneg(o, (uint64_t)m.proposer);
+    wenc_struct(o, "decmsg");
+    wenc_tuple(o, 1);
+    wenc_share_emsg(o, "decshare", m);
+    return o;
+  }
+  wenc_str(o, "subset");
+  o.push_back('\x00');  // HbMessage.proposer is None for subset envelopes
+  wenc_struct(o, "subsetmsg");
+  wenc_tuple(o, 3);
+  wenc_nonneg(o, (uint64_t)m.proposer);
+  switch (m.type) {
+    case BC_VALUE:
+    case BC_ECHO: {
+      wenc_str(o, "bc");
+      wenc_struct(o, m.type == BC_VALUE ? "bc_value" : "bc_echo");
+      wenc_tuple(o, 1);
+      const ProofData& p = *m.proof;
+      wenc_struct(o, "proof");
+      wenc_tuple(o, 4);
+      wenc_bytes(o, (const uint8_t*)p.value.data(), p.value.size());
+      wenc_nonneg(o, (uint64_t)p.index);
+      wenc_tuple(o, (uint32_t)p.path.size());
+      for (const Root& h : p.path) wenc_bytes(o, h.data(), 32);
+      wenc_bytes(o, p.root.data(), 32);
+      break;
+    }
+    case BC_READY:
+    case BC_ECHO_HASH:
+    case BC_CAN_DECODE: {
+      wenc_str(o, "bc");
+      wenc_struct(o, m.type == BC_READY        ? "bc_ready"
+                     : m.type == BC_ECHO_HASH  ? "bc_echohash"
+                                               : "bc_candecode");
+      wenc_tuple(o, 1);
+      wenc_bytes(o, m.root.data(), 32);
+      break;
+    }
+    default: {  // BA_*
+      wenc_str(o, "ba");
+      wenc_struct(o, "ba");
+      wenc_tuple(o, 2);
+      wenc_nonneg(o, (uint64_t)m.round);
+      switch (m.type) {
+        case BA_BVAL:
+        case BA_AUX:
+        case BA_TERM:
+          wenc_struct(o, m.type == BA_BVAL  ? "ba_bval"
+                         : m.type == BA_AUX ? "ba_aux"
+                                            : "ba_term");
+          wenc_tuple(o, 1);
+          wenc_bool(o, m.bval != 0);
+          break;
+        case BA_CONF:
+          wenc_struct(o, "ba_conf");
+          wenc_tuple(o, 1);
+          wenc_struct(o, "bools");
+          wenc_tuple(o, 1);
+          wenc_nonneg(o, m.bval);
+          break;
+        default:  // BA_COIN
+          wenc_struct(o, "ba_coin");
+          wenc_tuple(o, 1);
+          wenc_struct(o, "signmsg");
+          wenc_tuple(o, 1);
+          wenc_share_emsg(o, "sigshare", m);
+          break;
+      }
+      break;
+    }
+  }
+  return o;
+}
+
+Bytes wire_encode_epoch_started(int64_t era, int64_t epoch) {
+  Bytes o;
+  wenc_struct(o, "sqmsg");
+  wenc_tuple(o, 2);
+  wenc_str(o, "epoch_started");
+  wenc_tuple(o, 2);
+  wenc_nonneg(o, (uint64_t)era);
+  wenc_nonneg(o, (uint64_t)epoch);
+  return o;
+}
+
+// CPython-strict UTF-8 validity (rejects continuations at start,
+// overlongs, surrogates, > U+10FFFF) — needed where Python's decoder
+// utf-8-decodes a FREE string (node ids); fixed-name comparisons reject
+// mismatches byte-wise either way.
+inline bool wire_utf8_ok(const uint8_t* s, size_t n) {
+  size_t i = 0;
+  while (i < n) {
+    uint8_t c = s[i];
+    if (c < 0x80) {
+      i += 1;
+    } else if (c < 0xC2) {
+      return false;
+    } else if (c < 0xE0) {
+      if (i + 1 >= n || (s[i + 1] & 0xC0) != 0x80) return false;
+      i += 2;
+    } else if (c < 0xF0) {
+      if (i + 2 >= n) return false;
+      uint8_t c1 = s[i + 1], c2 = s[i + 2];
+      if ((c1 & 0xC0) != 0x80 || (c2 & 0xC0) != 0x80) return false;
+      if (c == 0xE0 && c1 < 0xA0) return false;  // overlong
+      if (c == 0xED && c1 >= 0xA0) return false;  // surrogate
+      i += 3;
+    } else if (c < 0xF5) {
+      if (i + 3 >= n) return false;
+      uint8_t c1 = s[i + 1], c2 = s[i + 2], c3 = s[i + 3];
+      if ((c1 & 0xC0) != 0x80 || (c2 & 0xC0) != 0x80 || (c3 & 0xC0) != 0x80)
+        return false;
+      if (c == 0xF0 && c1 < 0x90) return false;  // overlong
+      if (c == 0xF4 && c1 >= 0x90) return false;  // > U+10FFFF
+      i += 4;
+    } else {
+      return false;
+    }
+  }
+  return true;
+}
+
+inline int32_t wire_sat32(int64_t v) {
+  return v > INT32_MAX ? INT32_MAX : (int32_t)v;
+}
+
+// Typed walk over the hbe_serde_scan token stream, mirroring the
+// wire.py validators for the SqMessage-reachable closure.  Rejections
+// may fire for a different REASON than Python's bottom-up build (e.g.
+// wrong-type field before a nested malformed struct), but the verdict
+// is identical — the fuzz-parity tests sweep corruptions to pin it.
+struct WireWalk {
+  const int64_t* t;
+  int64_t ntok;
+  const uint8_t* d;
+  int64_t ti = 0;
+  bool ok = true;
+
+  bool fail() {
+    ok = false;
+    return false;
+  }
+  bool have() const { return ti < ntok; }
+  int64_t tag() const { return t[3 * ti]; }
+  int64_t a() const { return t[3 * ti + 1]; }
+  int64_t b() const { return t[3 * ti + 2]; }
+  static bool eq(const uint8_t* p, int64_t l, const char* s) {
+    size_t n = std::strlen(s);
+    return (uint64_t)l == n && std::memcmp(p, s, n) == 0;
+  }
+
+  // type(v) is int and v >= 0 (bool tags are distinct — automatic).
+  // Values past int64 saturate: acceptance parity matters, the engine
+  // treats the result as "absurdly far future" exactly like Python's
+  // window checks would.
+  bool take_nonneg(int64_t& out) {
+    if (!have() || (tag() & 0xff) != 0x03 || (tag() >> 8) != 0)
+      return fail();
+    int64_t off = a(), l = b();
+    uint64_t v = 0;
+    if (l > 8) {
+      v = (uint64_t)INT64_MAX;
+    } else {
+      for (int64_t i = 0; i < l; ++i) v = (v << 8) | d[off + i];
+      if (v > (uint64_t)INT64_MAX) v = (uint64_t)INT64_MAX;
+    }
+    out = (int64_t)v;
+    ++ti;
+    return true;
+  }
+
+  // wire._node_id: int (any sign/size), utf-8 str, or bytes.  Ids the
+  // engine cannot route decode to the -2 sentinel — delivered, then
+  // faulted as unknown proposer, the Python protocol layer's verdict
+  // for an id outside the validator set.
+  bool take_node_id(int32_t& out) {
+    if (!have()) return fail();
+    int64_t low = tag() & 0xff;
+    if (low == 0x03) {
+      int64_t off = a(), l = b();
+      if ((tag() >> 8) != 0 || l > 4) {
+        out = -2;
+      } else {
+        int64_t v = 0;
+        for (int64_t i = 0; i < l; ++i) v = (v << 8) | d[off + i];
+        out = v <= INT32_MAX ? (int32_t)v : -2;
+      }
+      ++ti;
+      return true;
+    }
+    if (low == 0x05) {
+      if (!wire_utf8_ok(d + a(), (size_t)b())) return fail();
+      out = -2;
+      ++ti;
+      return true;
+    }
+    if (low == 0x04) {
+      out = -2;
+      ++ti;
+      return true;
+    }
+    return fail();
+  }
+
+  bool take_bool(uint8_t& out) {
+    if (!have() || (tag() != 0x01 && tag() != 0x02)) return fail();
+    out = tag() == 0x02 ? 1 : 0;
+    ++ti;
+    return true;
+  }
+
+  bool take_none() {
+    if (!have() || tag() != 0x00) return fail();
+    ++ti;
+    return true;
+  }
+
+  bool take_str(const uint8_t*& p, int64_t& l) {
+    if (!have() || tag() != 0x05) return fail();
+    p = d + a();
+    l = b();
+    ++ti;
+    return true;
+  }
+
+  bool take_bytes(const uint8_t*& p, int64_t& l) {
+    if (!have() || tag() != 0x04) return fail();
+    p = d + a();
+    l = b();
+    ++ti;
+    return true;
+  }
+
+  bool take_root(Root& out) {
+    const uint8_t* p;
+    int64_t l;
+    if (!take_bytes(p, l) || l != 32) return fail();
+    std::memcpy(out.data(), p, 32);
+    return true;
+  }
+
+  bool enter_tuple(uint32_t count) {
+    if (!have() || tag() != 0x06 || a() != (int64_t)count) return fail();
+    ++ti;
+    return true;
+  }
+
+  bool enter_tuple_any(int64_t& count) {
+    if (!have() || tag() != 0x06) return fail();
+    count = a();
+    ++ti;
+    return true;
+  }
+
+  bool enter_struct(const uint8_t*& name, int64_t& nl) {
+    if (!have() || tag() != 0x10) return fail();
+    name = d + a();
+    nl = b();
+    ++ti;
+    return true;
+  }
+
+  // Pinned scalar group element: suite name must be the pin's (loads
+  // rejects any other suite AT the group token), group id 1 or 2 (both
+  // decode through the identical scalar from_bytes), 32 BE bytes < r.
+  bool take_group_scalar(U256& out) {
+    if (!have() || tag() != 0x11) return fail();
+    if (!eq(d + a(), b(), kScalarSuiteName)) return fail();
+    ++ti;
+    if (!have()) return fail();
+    int64_t grp = tag();
+    if ((grp != 1 && grp != 2) || b() != 32) return fail();
+    out = u256_from_be(d + a(), 32);
+    if (!(u256_cmp(out, R_MOD) < 0)) return fail();
+    ++ti;
+    return true;
+  }
+
+  // sigshare/decshare: ("<suite>", elem).  Any other REGISTERED suite
+  // name fails is_g1/is_g2 against the pinned scalar element in Python;
+  // unregistered names fail the suite lookup — reject either way.
+  bool take_share_struct(const char* sname, U256& out) {
+    const uint8_t* nm;
+    int64_t nl;
+    if (!enter_struct(nm, nl) || !eq(nm, nl, sname)) return fail();
+    if (!enter_tuple(2)) return false;
+    const uint8_t* sp;
+    int64_t sl;
+    if (!take_str(sp, sl)) return false;
+    if (!eq(sp, sl, kScalarSuiteName)) return fail();
+    return take_group_scalar(out);
+  }
+
+  bool take_proof(std::shared_ptr<const ProofData>& out) {
+    const uint8_t* nm;
+    int64_t nl;
+    if (!enter_struct(nm, nl) || !eq(nm, nl, "proof")) return fail();
+    if (!enter_tuple(4)) return false;
+    auto p = std::make_shared<ProofData>();
+    const uint8_t* vp;
+    int64_t vl;
+    if (!take_bytes(vp, vl)) return false;
+    p->value.assign((const char*)vp, (size_t)vl);
+    int64_t idx;
+    if (!take_nonneg(idx)) return false;
+    p->index = wire_sat32(idx);  // >= n_leaves either way: invalid-proof
+    int64_t cnt;
+    if (!enter_tuple_any(cnt)) return false;  // empty path is codec-valid
+    p->path.reserve((size_t)cnt);  // scan bounds count by input bytes
+    for (int64_t i = 0; i < cnt; ++i) {
+      Root h;
+      if (!take_root(h)) return false;
+      p->path.push_back(h);
+    }
+    if (!take_root(p->root)) return false;
+    out = std::move(p);
+    return true;
+  }
+};
+
+// HbMessage fields (epoch, kind, proposer, inner) -> EMsg (era left to
+// the caller).  Mirrors wire._unpack_hb_msg + the whole inner tree.
+bool wire_walk_hbmsg_fields(WireWalk& w, EMsg& m) {
+  if (!w.enter_tuple(4)) return false;
+  int64_t epoch;
+  if (!w.take_nonneg(epoch)) return false;
+  m.epoch = wire_sat32(epoch);
+  const uint8_t* kp;
+  int64_t kl;
+  if (!w.take_str(kp, kl)) return false;
+  const uint8_t* nm;
+  int64_t nl;
+  if (WireWalk::eq(kp, kl, "decrypt")) {
+    if (!w.take_node_id(m.proposer)) return false;
+    if (!w.enter_struct(nm, nl) || !WireWalk::eq(nm, nl, "decmsg"))
+      return w.fail();
+    if (!w.enter_tuple(1)) return false;
+    if (!w.take_share_struct("decshare", m.share)) return false;
+    m.type = HB_DECRYPT;
+    return true;
+  }
+  if (!WireWalk::eq(kp, kl, "subset")) return w.fail();
+  if (!w.take_none()) return false;  // subset with a proposer rejects
+  if (!w.enter_struct(nm, nl) || !WireWalk::eq(nm, nl, "subsetmsg"))
+    return w.fail();
+  if (!w.enter_tuple(3)) return false;
+  if (!w.take_node_id(m.proposer)) return false;
+  const uint8_t* sk;
+  int64_t skl;
+  if (!w.take_str(sk, skl)) return false;
+  const uint8_t* in;
+  int64_t il;
+  if (WireWalk::eq(sk, skl, "bc")) {
+    if (!w.enter_struct(in, il)) return false;
+    if (WireWalk::eq(in, il, "bc_value") || WireWalk::eq(in, il, "bc_echo")) {
+      m.type = WireWalk::eq(in, il, "bc_value") ? BC_VALUE : BC_ECHO;
+      if (!w.enter_tuple(1)) return false;
+      std::shared_ptr<const ProofData> pr;
+      if (!w.take_proof(pr)) return false;
+      m.proof = std::move(pr);
+      return true;
+    }
+    if (WireWalk::eq(in, il, "bc_ready") ||
+        WireWalk::eq(in, il, "bc_echohash") ||
+        WireWalk::eq(in, il, "bc_candecode")) {
+      m.type = WireWalk::eq(in, il, "bc_ready")      ? BC_READY
+               : WireWalk::eq(in, il, "bc_echohash") ? BC_ECHO_HASH
+                                                     : BC_CAN_DECODE;
+      if (!w.enter_tuple(1)) return false;
+      return w.take_root(m.root);
+    }
+    return w.fail();
+  }
+  if (!WireWalk::eq(sk, skl, "ba")) return w.fail();
+  if (!w.enter_struct(in, il) || !WireWalk::eq(in, il, "ba")) return w.fail();
+  if (!w.enter_tuple(2)) return false;
+  int64_t rnd;
+  if (!w.take_nonneg(rnd)) return false;
+  m.round = wire_sat32(rnd);
+  const uint8_t* cn;
+  int64_t cl;
+  if (!w.enter_struct(cn, cl)) return false;
+  if (WireWalk::eq(cn, cl, "ba_bval") || WireWalk::eq(cn, cl, "ba_aux") ||
+      WireWalk::eq(cn, cl, "ba_term")) {
+    m.type = WireWalk::eq(cn, cl, "ba_bval")  ? BA_BVAL
+             : WireWalk::eq(cn, cl, "ba_aux") ? BA_AUX
+                                              : BA_TERM;
+    if (!w.enter_tuple(1)) return false;
+    return w.take_bool(m.bval);
+  }
+  if (WireWalk::eq(cn, cl, "ba_conf")) {
+    m.type = BA_CONF;
+    if (!w.enter_tuple(1)) return false;
+    const uint8_t* bn;
+    int64_t bl;
+    if (!w.enter_struct(bn, bl) || !WireWalk::eq(bn, bl, "bools"))
+      return w.fail();
+    if (!w.enter_tuple(1)) return false;
+    int64_t mask;
+    if (!w.take_nonneg(mask) || mask > 3) return w.fail();  // BoolSet 0..3
+    m.bval = (uint8_t)mask;
+    return true;
+  }
+  if (WireWalk::eq(cn, cl, "ba_coin")) {
+    m.type = BA_COIN;
+    if (!w.enter_tuple(1)) return false;
+    const uint8_t* sn;
+    int64_t sl;
+    if (!w.enter_struct(sn, sl) || !WireWalk::eq(sn, sl, "signmsg"))
+      return w.fail();
+    if (!w.enter_tuple(1)) return false;
+    return w.take_share_struct("sigshare", m.share);
+  }
+  return w.fail();
+}
+
+// JoinPlan validation (wire._unpack_join_plan): accepted then IGNORED —
+// SenderQueue's "already joined: nothing to do" — but acceptance parity
+// still matters for the bad_payload counter and the fuzz contract.
+bool wire_walk_joinplan_fields(WireWalk& w) {
+  if (!w.enter_tuple(5)) return false;
+  int64_t era;
+  if (!w.take_nonneg(era)) return false;
+  const uint8_t* sn;
+  int64_t sl;
+  if (!w.take_str(sn, sl)) return false;
+  // Under the pin all commitment elements are scalar; a bls-named plan
+  // fails is_g1 on them, an unregistered name fails the suite lookup.
+  if (!WireWalk::eq(sn, sl, kScalarSuiteName)) return w.fail();
+  const uint8_t* cn;
+  int64_t cl;
+  if (!w.enter_struct(cn, cl) || !WireWalk::eq(cn, cl, "comm"))
+    return w.fail();
+  if (!w.enter_tuple(1)) return false;
+  int64_t elems;
+  if (!w.enter_tuple_any(elems) || elems < 1) return w.fail();
+  for (int64_t i = 0; i < elems; ++i) {
+    U256 v;
+    if (!w.take_group_scalar(v)) return false;
+  }
+  int64_t nval;
+  if (!w.enter_tuple_any(nval) || nval < 1) return w.fail();
+  for (int64_t i = 0; i < nval; ++i) {
+    if (!w.enter_tuple(2)) return false;
+    int32_t id;
+    if (!w.take_node_id(id)) return false;
+    const uint8_t* pn;
+    int64_t pl;
+    if (!w.enter_struct(pn, pl) || !WireWalk::eq(pn, pl, "pk"))
+      return w.fail();
+    if (!w.enter_tuple(2)) return false;
+    const uint8_t* psn;
+    int64_t psl;
+    if (!w.take_str(psn, psl) || !WireWalk::eq(psn, psl, kScalarSuiteName))
+      return w.fail();
+    U256 v;
+    if (!w.take_group_scalar(v)) return false;
+  }
+  const uint8_t* en;
+  int64_t el;
+  if (!w.enter_struct(en, el) || !WireWalk::eq(en, el, "encsched"))
+    return w.fail();
+  if (!w.enter_tuple(2)) return false;
+  const uint8_t* kn;
+  int64_t kl;
+  if (!w.take_str(kn, kl)) return false;
+  if (!(WireWalk::eq(kn, kl, "always") || WireWalk::eq(kn, kl, "never") ||
+        WireWalk::eq(kn, kl, "every_nth") ||
+        WireWalk::eq(kn, kl, "tick_tock")))
+    return w.fail();
+  int64_t schedn;
+  if (!w.take_nonneg(schedn) || schedn < 1) return w.fail();
+  return true;
+}
+
+bool wire_decode_tokens(const int64_t* t, int64_t ntok, const uint8_t* d,
+                        WireDecoded& out) {
+  WireWalk w{t, ntok, d};
+  const uint8_t* nm;
+  int64_t nl;
+  if (!w.enter_struct(nm, nl) || !WireWalk::eq(nm, nl, "sqmsg")) return false;
+  if (!w.enter_tuple(2)) return false;
+  const uint8_t* kp;
+  int64_t kl;
+  if (!w.take_str(kp, kl)) return false;
+  if (WireWalk::eq(kp, kl, "epoch_started")) {
+    if (!w.enter_tuple(2)) return false;
+    if (!w.take_nonneg(out.era) || !w.take_nonneg(out.epoch)) return false;
+    out.kind = 1;
+  } else if (WireWalk::eq(kp, kl, "algo")) {
+    const uint8_t* an;
+    int64_t al;
+    if (!w.enter_struct(an, al)) return false;
+    if (WireWalk::eq(an, al, "dhbmsg")) {
+      if (!w.enter_tuple(2)) return false;
+      int64_t era;
+      if (!w.take_nonneg(era)) return false;
+      const uint8_t* hn;
+      int64_t hl;
+      if (!w.enter_struct(hn, hl) || !WireWalk::eq(hn, hl, "hbmsg"))
+        return false;
+      if (!wire_walk_hbmsg_fields(w, out.msg)) return false;
+      out.msg.era = wire_sat32(era);
+      out.kind = 2;
+    } else if (WireWalk::eq(an, al, "hbmsg")) {
+      // Static-stack HbMessage: codec-valid (SqMessage admits both),
+      // but the dynamic stack faults it as malformed without effect.
+      EMsg scratch;
+      if (!wire_walk_hbmsg_fields(w, scratch)) return false;
+      out.kind = 3;
+    } else {
+      return false;
+    }
+  } else if (WireWalk::eq(kp, kl, "join_plan")) {
+    const uint8_t* jn;
+    int64_t jl;
+    if (!w.enter_struct(jn, jl) || !WireWalk::eq(jn, jl, "joinplan"))
+      return false;
+    if (!wire_walk_joinplan_fields(w)) return false;
+    out.kind = 3;
+  } else {
+    return false;
+  }
+  // The scan already rejects trailing bytes; a fully-consumed token
+  // stream is the tree-level equivalent.
+  return w.ok && w.ti == ntok;
+}
+
+extern "C" int64_t hbe_serde_scan(const uint8_t* data, uint64_t len,
+                                  int64_t* out, uint64_t max_triples,
+                                  int64_t max_depth, uint64_t max_len);
+
+// Full wire decode: structural scan (serde limits) + typed walk.
+bool wire_decode(const uint8_t* data, uint64_t len, WireDecoded& out) {
+  if (len == 0) return false;
+  // Optimistic token buffer with the exact-worst-case retry, like
+  // serde._native_scan (one triple per input byte, +2 for root/group).
+  // Typical frames reuse a thread_local scratch: a fresh zero-
+  // initialized vector per frame was measurable on the burst ingest
+  // path, and the scan only reads triples it wrote.  Oversized frames
+  // (rare multi-MB bc_values) take a one-shot buffer instead so the
+  // retained scratch stays bounded (~2 MB/thread).
+  static thread_local std::vector<int64_t> scratch;
+  std::vector<int64_t> oneshot;
+  for (int attempt = 0; attempt < 2; ++attempt) {
+    uint64_t triples = attempt == 0 ? len / 2 + 64 : len + 2;
+    uint64_t need = 3 * triples;
+    int64_t* bp;
+    if (need <= (1ull << 18)) {
+      if (scratch.size() < need) scratch.resize(need);
+      bp = scratch.data();
+    } else {
+      oneshot.resize(need);
+      bp = oneshot.data();
+    }
+    // mirror: serde-scan-limits (twin: serde.MAX_DEPTH / serde._MAX_LEN
+    //     — HBX001 pins these literals to the Python constants)
+    int64_t rc = hbe_serde_scan(data, len, bp, triples, 64, 1ull << 28);
+    if (rc == -2) continue;  // buffer too small: retry exact
+    if (rc < 0) return false;
+    return wire_decode_tokens(bp, rc, data, out);
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// Cluster egress gating + announcements (SenderQueue semantics)
+// ---------------------------------------------------------------------------
+
+// SenderQueue._admits: 0 send, 1 hold (ahead of window), 2 drop (stale).
+// mirror: sq-admission (twin: sender_queue.SenderQueue._admits —
+//     window-rule changes land on BOTH sides)
+inline int cluster_admit(const std::array<int64_t, 2>& pe, int64_t era,
+                         int64_t epoch, int32_t window) {
+  if (era < pe[0]) return 2;
+  if (era > pe[0]) return 1;
+  if (epoch < pe[1]) return 2;
+  if (epoch > pe[1] + window) return 1;
+  return 0;
+}
+
+void cluster_emit(Engine& e, int dest, const std::shared_ptr<const EMsg>& msg) {
+  ClusterState& c = e.cluster;
+  if (dest < 0 || dest >= e.n || dest == c.local) return;
+  const EMsg& m = *msg;
+  int adm = cluster_admit(c.peer_epoch[dest], m.era, m.epoch, c.window);
+  if (adm == 2) {
+    c.stats[CL_DROPPED_STALE]++;
+    return;
+  }
+  if (c.enc_src.get() != msg.get()) {  // one encode per broadcast
+    c.enc_payload = std::make_shared<const Bytes>(wire_encode_algo(m));
+    c.enc_src = msg;
+  }
+  if (adm == 0) {
+    c.egress.push_back({(int32_t)dest, c.enc_payload});
+    c.egress_bytes += c.enc_payload->size();
+    c.stats[CL_SENT]++;
+  } else {
+    c.outbox[dest].push_back({m.era, m.epoch, c.enc_payload});
+    c.stats[CL_HELD]++;
+  }
+}
+
+void cluster_on_epoch_started(Engine& e, int sender, int64_t era,
+                              int64_t epoch) {
+  ClusterState& c = e.cluster;
+  auto& pe = c.peer_epoch[sender];
+  if (era < pe[0] || (era == pe[0] && epoch <= pe[1])) return;  // stale
+  pe = {era, epoch};
+  std::deque<ClusterHeld> held;
+  held.swap(c.outbox[sender]);
+  for (ClusterHeld& h : held) {
+    int adm = cluster_admit(pe, h.era, h.epoch, c.window);
+    if (adm == 0) {
+      c.egress_bytes += h.payload->size();
+      c.egress.push_back({(int32_t)sender, std::move(h.payload)});
+      c.stats[CL_RELEASED]++;
+    } else if (adm == 1) {
+      c.outbox[sender].push_back(std::move(h));
+    } else {
+      c.stats[CL_DROPPED_STALE]++;
+    }
+  }
+}
+
+void cluster_announce(Engine& e) {
+  ClusterState& c = e.cluster;
+  if (c.local < 0) return;
+  Node& nd = e.nodes[c.local];
+  if (!nd.hb_init) return;
+  int64_t era = nd.era, ep = nd.hb.epoch;
+  if (era == c.ann_era && ep == c.ann_epoch) return;
+  c.ann_era = era;
+  c.ann_epoch = ep;
+  BytesP p = std::make_shared<const Bytes>(wire_encode_epoch_started(era, ep));
+  for (int d = 0; d < e.n; ++d) {
+    if (d == c.local) continue;
+    c.egress.push_back({(int32_t)d, p});
+    c.egress_bytes += p->size();
+  }
+  c.stats[CL_ANNOUNCES]++;
+}
+
+// ---------------------------------------------------------------------------
+// Scalar-suite DKG fast path: registered BivarCommitments + per-ack checks
+// ---------------------------------------------------------------------------
+//
+// The era-change tail is the N^3 per-ack Python work (BASELINE.md round-4
+// profile: decrypt + commitment row eval + compare per committed Ack, at
+// every node).  A commitment matrix registers once per decoded Part
+// (network-wide, on the shared object) and each ack check is ONE C call.
+//
+// The registry is process-global, mutex-guarded (ctypes.CDLL drops the
+// GIL during foreign calls, so concurrent Python threads CAN race here),
+// and byte-capped: when stored matrices exceed DKG_REG_MAX_BYTES the
+// whole registry is cleared and the GENERATION bumps — cids encode
+// (generation << 32 | index), so stale cids (including ones memoized on
+// still-live Python commitment objects) never resolve to a different
+// entry; they miss and the caller falls back to the pure-Python path,
+// which is always correct.  This bounds memory across unbounded era
+// churn in a long-lived process.
+
+struct DkgCommit {
+  int n1 = 0;
+  U256 g;                                  // suite g1 generator value
+  std::vector<U256> elems;                 // n1*n1 row-major [i][j]
+  std::map<int, std::vector<U256>> rows;   // x -> committed row coeffs
+};
+
+const size_t DKG_REG_MAX_BYTES = 128u << 20;  // matrices only; rows ~2x
+
+struct DkgRegistry {
+  std::mutex mu;
+  std::vector<DkgCommit> entries;
+  uint64_t generation = 0;
+  size_t bytes = 0;
+};
+
+DkgRegistry& dkg_registry() {
+  static DkgRegistry reg;
+  return reg;
+}
+
+// Committed row poly for x: row_j(x) = sum_i elems[i][j] * x^i
+// (BivarCommitment.row's Horner, cached per (commitment, x) exactly like
+// the Python object memo).  Caller holds the registry mutex.
+const std::vector<U256>& dkg_row(DkgCommit& c, int x) {
+  auto it = c.rows.find(x);
+  if (it != c.rows.end()) return it->second;
+  // One-side-Montgomery Horner (round 15): x lifts once, each step is
+  // one REDC producing the exact canonical acc*x the classic mulmod
+  // produced — identical rows, half the reduction work.
+  U256 xs = {{(uint64_t)x, 0, 0, 0}};
+  U256 xm = to_mont(xs);
+  std::vector<U256> out(c.n1);
+  for (int j = 0; j < c.n1; ++j) {
+    U256 acc = U256_ZERO;
+    for (int i = c.n1 - 1; i >= 0; --i)
+      acc = addmod(mont_mul(acc, xm), c.elems[i * c.n1 + j]);
+    out[j] = acc;
+  }
+  return c.rows.emplace(x, std::move(out)).first->second;
+}
+
+// Caller holds the registry mutex.
+inline DkgCommit* dkg_get(DkgRegistry& reg, int64_t cid) {
+  if (cid < 0 || (uint64_t)(cid >> 32) != reg.generation) return nullptr;
+  size_t idx = (size_t)(cid & 0xFFFFFFFF);
+  if (idx >= reg.entries.size()) return nullptr;
+  return &reg.entries[idx];
+}
+
+// By-value snapshot of one registered commitment's data for a given
+// evaluation point: everything the ack/row checks need OUTSIDE the
+// registry mutex (snapshot-outside-the-lock — the KEM
+// decrypt + Horner evaluations must not serialize all concurrent DKG
+// checks process-wide; ctypes drops the GIL, so multi-threaded Python
+// callers otherwise contend on the one global lock).
+struct DkgRowCopy {
+  bool ok = false;
+  U256 g = U256_ZERO;
+  int n1 = 0;
+  std::vector<U256> row;  // committed row coeffs at the requested x
+};
+
+// Caller holds the registry mutex.
+inline DkgRowCopy dkg_copy_row(DkgRegistry& reg, int64_t cid, int x) {
+  DkgRowCopy out;
+  DkgCommit* c = dkg_get(reg, cid);
+  if (!c) return out;
+  out.ok = true;
+  out.g = c->g;
+  out.n1 = c->n1;
+  out.row = dkg_row(*c, x);  // copy out by value
+  return out;
+}
+
+// row(x) evaluated at y by Horner (the commitment consistency check's
+// expected value); runs lock-free over a DkgRowCopy.
+inline U256 dkg_row_eval(const DkgRowCopy& rc, int y) {
+  U256 ys = {{(uint64_t)y, 0, 0, 0}};
+  U256 ym = to_mont(ys);  // one-side-Montgomery Horner, see dkg_row
+  U256 acc = U256_ZERO;
+  for (int j = rc.n1 - 1; j >= 0; --j)
+    acc = addmod(mont_mul(acc, ym), rc.row[j]);
+  return acc;
+}
+
+}  // namespace
+
+// ===========================================================================
+// C ABI
+// ===========================================================================
+
+extern "C" {
+
+// --- scalar-suite KEM fast path (stateless; no engine handle) --------------
+//
+// Mirrors keys.py PublicKey.encrypt / SecretKey.decrypt for the scalar
+// suite byte-for-byte (canonical_bytes framing, kdf_stream, h2g2) so the
+// Python layer can route the N^3 DKG ack/row KEM operations here without
+// changing any protocol output.  Randomness for encrypt is drawn by the
+// CALLER (Python rng) to keep the rng consumption stream identical to the
+// pure-Python stack — the equivalence tests depend on it.
+
+// Decrypt: validate the ciphertext (w == u * h2g2(ct-hash-input), the
+// scalar-suite pairing check), then unmask v with kdf(u * x).  u/w/x are
+// 32-byte big-endian scalars < r; out must hold v_len bytes.  Returns 1
+// and fills out on a valid ciphertext, 0 otherwise (out untouched).
+int32_t hbe_kem_decrypt(const uint8_t* u_be, const uint8_t* v, uint64_t v_len,
+                        const uint8_t* w_be, const uint8_t* x_be,
+                        uint8_t* out) {
+  ScalarCiphertext ct;
+  ct.u = u256_from_be(u_be, 32);
+  ct.w = u256_from_be(w_be, 32);
+  ct.v.assign((const char*)v, v_len);
+  U256 h = ct_hash_scalar(ct);
+  if (!(mulmod(ct.u, h) == ct.w)) return 0;
+  U256 shared = mulmod(ct.u, u256_from_be(x_be, 32));
+  uint8_t sh_be[32];
+  u256_to_be32(shared, sh_be);
+  Bytes seed;
+  canon_append(seed, "kem");
+  canon_append(seed, Bytes((const char*)sh_be, 32));
+  Bytes mask = kdf_stream(seed, v_len);
+  for (uint64_t i = 0; i < v_len; ++i)
+    out[i] = v[i] ^ (uint8_t)mask[i];
+  return 1;
+}
+
+// Encrypt msg to pk with caller-provided randomness r (32B BE, in [1, r)).
+// out_u/out_w: 32 bytes each; out_v: msg_len bytes.
+void hbe_kem_encrypt(const uint8_t* pk_be, const uint8_t* msg,
+                     uint64_t msg_len, const uint8_t* r_be, uint8_t* out_u,
+                     uint8_t* out_v, uint8_t* out_w) {
+  U256 r = u256_from_be(r_be, 32);
+  U256 pk = u256_from_be(pk_be, 32);
+  u256_to_be32(r, out_u);  // u = g1_generator * r = r in the scalar group
+  U256 shared = mulmod(pk, r);
+  uint8_t sh_be[32];
+  u256_to_be32(shared, sh_be);
+  Bytes seed;
+  canon_append(seed, "kem");
+  canon_append(seed, Bytes((const char*)sh_be, 32));
+  Bytes mask = kdf_stream(seed, msg_len);
+  for (uint64_t i = 0; i < msg_len; ++i)
+    out_v[i] = msg[i] ^ (uint8_t)mask[i];
+  ScalarCiphertext ct;
+  ct.u = r;
+  ct.v.assign((const char*)out_v, msg_len);
+  U256 h = ct_hash_scalar(ct);
+  u256_to_be32(mulmod(h, r), out_w);
+}
+
+// Batched hbe_kem_encrypt: n fixed-32-byte messages to n public keys
+// with n caller-drawn randomness values (the DKG ack row: one encrypted
+// evaluation per node).  Layout: flat n*32-byte arrays throughout.
+void hbe_kem_encrypt_batch(const uint8_t* pks_be, const uint8_t* msgs,
+                           int32_t n, const uint8_t* rs_be, uint8_t* out_u,
+                           uint8_t* out_v, uint8_t* out_w) {
+  for (int32_t i = 0; i < n; ++i)
+    hbe_kem_encrypt(pks_be + 32 * i, msgs + 32 * i, 32, rs_be + 32 * i,
+                    out_u + 32 * i, out_v + 32 * i, out_w + 32 * i);
+}
+
+// --- scalar-suite DKG fast path (registry notes above the C ABI) -----------
+
+// Register a BivarCommitment matrix: elems_be = n1*n1 32-byte BE scalars
+// (row-major), g_be = the suite's g1 generator value, r_be = the scalar
+// modulus.  Returns a cid >= 0, or -1 when the modulus is not this
+// build's R_MOD or an element is out of range (caller falls back to the
+// Python path).
+int64_t hbe_dkg_register(const uint8_t* elems_be, int32_t n1,
+                         const uint8_t* g_be, const uint8_t* r_be) {
+  if (n1 < 1 || n1 > 4096) return -1;
+  if (!(u256_from_be(r_be, 32) == R_MOD)) return -1;
+  DkgCommit c;
+  c.n1 = n1;
+  c.g = u256_from_be(g_be, 32);
+  if (!(u256_cmp(c.g, R_MOD) < 0)) return -1;
+  c.elems.resize((size_t)n1 * n1);
+  for (size_t k = 0; k < c.elems.size(); ++k) {
+    c.elems[k] = u256_from_be(elems_be + 32 * k, 32);
+    if (!(u256_cmp(c.elems[k], R_MOD) < 0)) return -1;
+  }
+  DkgRegistry& reg = dkg_registry();
+  std::lock_guard<std::mutex> lk(reg.mu);
+  size_t add = c.elems.size() * sizeof(U256);
+  if (reg.bytes + add > DKG_REG_MAX_BYTES) {
+    reg.entries.clear();
+    reg.bytes = 0;
+    reg.generation++;  // stale cids from before the clear never resolve
+  }
+  reg.bytes += add;
+  reg.entries.push_back(std::move(c));
+  return (int64_t)((reg.generation << 32) | (reg.entries.size() - 1));
+}
+
+uint64_t hbe_dkg_registry_size() {
+  DkgRegistry& reg = dkg_registry();
+  std::lock_guard<std::mutex> lk(reg.mu);
+  return reg.entries.size();
+}
+
+// Clear everything and bump the generation (tests / explicit release;
+// stale cids fall back to the pure-Python path, never misresolve).
+void hbe_dkg_clear() {
+  DkgRegistry& reg = dkg_registry();
+  std::lock_guard<std::mutex> lk(reg.mu);
+  reg.entries.clear();
+  reg.bytes = 0;
+  reg.generation++;
+}
+
+// Full private ack check (sync_key_gen.handle_ack's value path): KEM
+// decrypt of the 32-byte ack slot, scalar decode, and the commitment
+// consistency check  g*val == row(sender_pos).eval(our_pos).
+// Returns: 1 = valid (out_val32 = the 32-byte BE value), 2 = ciphertext
+// valid but value bad (decode/consistency failure -> fault), 0 = the
+// ciphertext itself failed the KEM validity check (-> fault; the caller
+// records the ct-validity memo distinctly from the value verdict),
+// -1 = unknown cid (caller must FALL BACK to the Python path, never
+// fault).
+int32_t hbe_dkg_ack_check(int64_t cid, int32_t sender_pos, int32_t our_pos,
+                          const uint8_t* u_be, const uint8_t* v32,
+                          const uint8_t* w_be, const uint8_t* sk_be,
+                          uint8_t* out_val32) {
+  // Row snapshot under the lock; decrypt + Horner OUTSIDE it (the
+  // snapshot-outside-the-lock pattern — see DkgRowCopy).
+  DkgRowCopy rc;
+  {
+    DkgRegistry& reg = dkg_registry();
+    std::lock_guard<std::mutex> lk(reg.mu);
+    rc = dkg_copy_row(reg, cid, sender_pos);
+  }
+  if (!rc.ok) return -1;
+  uint8_t plain[32];
+  if (!hbe_kem_decrypt(u_be, v32, 32, w_be, sk_be, plain)) return 0;
+  U256 val = u256_from_be(plain, 32);
+  if (!(u256_cmp(val, R_MOD) < 0)) return 2;
+  U256 expected = dkg_row_eval(rc, our_pos);
+  if (!(mulmod(rc.g, val) == expected)) return 2;
+  std::memcpy(out_val32, plain, 32);
+  return 1;
+}
+
+// Batched hbe_dkg_ack_check: ONE call for a whole committed batch's ack
+// slots (the era-change continuation tail is per-batch Python work —
+// this is the native half of the batch-digest fast path).  cids and
+// sender positions vary per item (a batch's acks reference different
+// dealers' commitments); our_pos and the secret key are fixed (one
+// receiving node).  Registry lookups are amortized: ONE lock
+// acquisition snapshots every referenced row (deduped by
+// (cid, sender_pos)), then all KEM decrypts + Horner evaluations run
+// outside the lock.  Per-item rc semantics are IDENTICAL to
+// hbe_dkg_ack_check (1 ok / 2 bad value / 0 bad ciphertext / -1 fall
+// back per item); u/v/w are flat count x 32-byte arrays, vals_out
+// likewise.  Returns 1, or 0 on gross misuse (caller falls back
+// entirely).
+int32_t hbe_dkg_ack_check_batch(const int64_t* cids,
+                                const int32_t* sender_pos, int32_t count,
+                                int32_t our_pos, const uint8_t* u_flat,
+                                const uint8_t* v_flat, const uint8_t* w_flat,
+                                const uint8_t* sk_be, int32_t* rc_out,
+                                uint8_t* vals_out) {
+  if (count < 1 || count > (1 << 22)) return 0;
+  std::vector<DkgRowCopy> uniq;
+  std::vector<int> ref((size_t)count, -1);
+  {
+    DkgRegistry& reg = dkg_registry();
+    std::lock_guard<std::mutex> lk(reg.mu);
+    std::map<std::pair<int64_t, int32_t>, int> seen;
+    for (int32_t i = 0; i < count; ++i) {
+      auto key = std::make_pair(cids[i], sender_pos[i]);
+      auto it = seen.find(key);
+      if (it != seen.end()) {
+        ref[i] = it->second;
+        continue;
+      }
+      int idx = (int)uniq.size();
+      uniq.push_back(dkg_copy_row(reg, cids[i], sender_pos[i]));
+      seen.emplace(key, idx);
+      ref[i] = idx;
+    }
+  }
+  // our_pos is fixed across the batch, so each distinct row's expected
+  // value is one Horner — not one per referencing ack (and each row's
+  // generator lifts to the Montgomery domain once for the per-ack
+  // g*val products below).
+  std::vector<U256> expected(uniq.size(), U256_ZERO);
+  std::vector<U256> gms(uniq.size(), U256_ZERO);
+  for (size_t k = 0; k < uniq.size(); ++k)
+    if (uniq[k].ok) {
+      expected[k] = dkg_row_eval(uniq[k], our_pos);
+      gms[k] = to_mont(uniq[k].g);
+    }
+  for (int32_t i = 0; i < count; ++i) {
+    const DkgRowCopy& rc = uniq[ref[i]];
+    if (!rc.ok) {
+      rc_out[i] = -1;
+      continue;
+    }
+    uint8_t plain[32];
+    if (!hbe_kem_decrypt(u_flat + 32 * (size_t)i, v_flat + 32 * (size_t)i, 32,
+                         w_flat + 32 * (size_t)i, sk_be, plain)) {
+      rc_out[i] = 0;
+      continue;
+    }
+    U256 val = u256_from_be(plain, 32);
+    if (!(u256_cmp(val, R_MOD) < 0)) {
+      rc_out[i] = 2;
+      continue;
+    }
+    if (!(mont_mul(val, gms[ref[i]]) == expected[ref[i]])) {
+      rc_out[i] = 2;
+      continue;
+    }
+    std::memcpy(vals_out + 32 * (size_t)i, plain, 32);
+    rc_out[i] = 1;
+  }
+  return 1;
+}
+
+// Part row consistency (sync_key_gen._decrypt_row's commitment check):
+// plain = the decrypted row plaintext (n1 32-byte BE coefficients);
+// checks g*coeff_j == committed row(our_pos)[j] for every j.  Returns 1
+// ok, 0 mismatch/out-of-range (caller faults, exactly like the Python
+// to_bytes comparison), -1 unknown cid (caller falls back).
+int32_t hbe_dkg_row_check(int64_t cid, int32_t our_pos, const uint8_t* plain,
+                          int32_t n_coeffs) {
+  DkgRowCopy rc;
+  {
+    DkgRegistry& reg = dkg_registry();
+    std::lock_guard<std::mutex> lk(reg.mu);
+    rc = dkg_copy_row(reg, cid, our_pos);
+  }
+  if (!rc.ok) return -1;
+  if (n_coeffs != rc.n1) return 0;
+  U256 gm = to_mont(rc.g);  // g is loop-invariant: lift once
+  for (int j = 0; j < rc.n1; ++j) {
+    U256 v = u256_from_be(plain + 32 * j, 32);
+    if (!(u256_cmp(v, R_MOD) < 0)) return 0;
+    if (!(mont_mul(v, gm) == rc.row[j])) return 0;
+  }
+  return 1;
+}
+
+// Batched Part private check (sync_key_gen._decrypt_row in one call per
+// batch): for each part, KEM-decrypt our encrypted row (v_flat holds
+// count ciphertext bodies of n1*32 bytes each), range-check the n1
+// decoded coefficients, and compare g*coeff_j against the registered
+// commitment's row(our_pos) — the exact decrypt -> _decode_scalars ->
+// row-consistency pipeline.  Registry lookups amortize through ONE
+// lock acquisition (deduped by cid; our_pos is fixed), checks run
+// outside it.  Per-item rc: 1 ok (rows_out[i] = the decrypted n1*32
+// plaintext), 2 ciphertext valid but decode/consistency failed
+// (-> fault), 0 the ciphertext itself failed the KEM check (-> fault;
+// distinct so the caller's ct-validity memo stays faithful), -1 unknown
+// cid (caller falls back per item).  Returns 1, or 0 on gross misuse.
+int32_t hbe_dkg_part_check_batch(const int64_t* cids, int32_t count,
+                                 int32_t our_pos, const uint8_t* u_flat,
+                                 const uint8_t* v_flat,
+                                 const uint8_t* w_flat, int32_t n1,
+                                 const uint8_t* sk_be, int32_t* rc_out,
+                                 uint8_t* rows_out) {
+  if (count < 1 || count > (1 << 22) || n1 < 1 || n1 > 4096) return 0;
+  size_t vlen = (size_t)n1 * 32;
+  std::vector<DkgRowCopy> uniq;
+  std::vector<int> ref((size_t)count, -1);
+  {
+    DkgRegistry& reg = dkg_registry();
+    std::lock_guard<std::mutex> lk(reg.mu);
+    std::map<int64_t, int> seen;
+    for (int32_t i = 0; i < count; ++i) {
+      auto it = seen.find(cids[i]);
+      if (it != seen.end()) {
+        ref[i] = it->second;
+        continue;
+      }
+      int idx = (int)uniq.size();
+      uniq.push_back(dkg_copy_row(reg, cids[i], our_pos));
+      seen.emplace(cids[i], idx);
+      ref[i] = idx;
+    }
+  }
+  for (int32_t i = 0; i < count; ++i) {
+    const DkgRowCopy& rc = uniq[ref[i]];
+    if (!rc.ok) {
+      rc_out[i] = -1;
+      continue;
+    }
+    uint8_t* plain = rows_out + vlen * (size_t)i;
+    if (!hbe_kem_decrypt(u_flat + 32 * (size_t)i, v_flat + vlen * (size_t)i,
+                         vlen, w_flat + 32 * (size_t)i, sk_be, plain)) {
+      rc_out[i] = 0;
+      continue;
+    }
+    if (rc.n1 != n1) {  // registered degree mismatch: same fault as the
+      rc_out[i] = 2;    // per-item row_check's n_coeffs != n1 verdict
+      continue;
+    }
+    U256 gm = to_mont(rc.g);  // lift once per part, see hbe_dkg_row_check
+    int ok = 1;
+    for (int j = 0; j < n1 && ok; ++j) {
+      U256 v = u256_from_be(plain + 32 * (size_t)j, 32);
+      if (!(u256_cmp(v, R_MOD) < 0) || !(mont_mul(v, gm) == rc.row[j]))
+        ok = 0;
+    }
+    rc_out[i] = ok ? 1 : 2;
+  }
+  return 1;
+}
+
+// --- serde token scan (native half of utils/serde.loads) -------------------
+//
+// One pass over a serde payload producing a flat int64 TRIPLE stream the
+// Python builder walks without any per-byte work (utils/serde.py
+// _decode's take/u8/u32 calls were the measured bulk of DKG-payload
+// decoding).  Structural validation here mirrors the Python decoder's
+// checks EXACTLY where they are structural (bounds, canonical ints,
+// counts, depth, known tags); semantic checks (utf-8, struct/suite
+// registries, dict key rules, unpack validation) stay in Python.  Both
+// paths raise the same DecodeError class, so a malformed payload is
+// rejected either way — only the failure MESSAGE can differ.
+//
+// Triple layout per value node:
+//   NONE/TRUE/FALSE: [tag, 0, 0]
+//   INT:   [0x03 | sign<<8, mag_offset, mag_len]
+//   BYTES: [0x04, offset, len]    STR: [0x05, offset, len]
+//   TUPLE/LIST: [tag, count, 0] then `count` child nodes
+//   DICT:  [0x08, count, 0] then 2*count child nodes (k, v, k, v, ...)
+//   STRUCT:[0x10, name_offset, name_len] then ONE node (the fields)
+//   GROUP: [0x11, name_offset, name_len] then EXTRA triple
+//          [group_id, payload_offset, payload_len]
+// Returns the number of triples, -1 on malformed input, -2 when the
+// output buffer is too small (caller retries with a bigger one).
+
+namespace {
+struct SerdeScan {
+  const uint8_t* d;
+  uint64_t len, pos = 0;
+  int64_t* out;
+  uint64_t max_triples, n = 0;
+  // Limits supplied by the CALLER (serde.MAX_DEPTH / serde._MAX_LEN) so
+  // the two decoders can never silently disagree after a constant edit.
+  int64_t max_depth = 64;
+  uint64_t max_len = 1ull << 28;
+  int err = 0;  // 0 ok, 1 malformed, 2 overflow
+
+  bool need(uint64_t k) {
+    if (pos + k > len) {
+      err = 1;
+      return false;
+    }
+    return true;
+  }
+  bool emit(int64_t a, int64_t b, int64_t c) {
+    if (n >= max_triples) {
+      err = 2;
+      return false;
+    }
+    out[3 * n] = a;
+    out[3 * n + 1] = b;
+    out[3 * n + 2] = c;
+    n++;
+    return true;
+  }
+  uint32_t u32() {
+    uint32_t v = ((uint32_t)d[pos] << 24) | ((uint32_t)d[pos + 1] << 16) |
+                 ((uint32_t)d[pos + 2] << 8) | d[pos + 3];
+    pos += 4;
+    return v;
+  }
+
+  void value(int depth) {
+    if (err) return;
+    if (depth > max_depth) {  // serde.MAX_DEPTH (caller-supplied)
+      err = 1;
+      return;
+    }
+    if (!need(1)) return;
+    uint8_t tag = d[pos++];
+    switch (tag) {
+      case 0x00:
+      case 0x01:
+      case 0x02:
+        emit(tag, 0, 0);
+        return;
+      case 0x03: {  // int: sign u8, len u32, magnitude
+        if (!need(5)) return;
+        uint8_t sign = d[pos++];
+        if (sign > 1) {
+          err = 1;
+          return;
+        }
+        uint64_t l = u32();
+        if (l > max_len) {
+          err = 1;
+          return;
+        }
+        if (!need(l)) return;
+        if (l > 0 && d[pos] == 0) {  // non-minimal int
+          err = 1;
+          return;
+        }
+        if (sign == 1 && l == 0) {  // negative zero
+          err = 1;
+          return;
+        }
+        emit(0x03 | ((int64_t)sign << 8), (int64_t)pos, (int64_t)l);
+        pos += l;
+        return;
+      }
+      case 0x04:
+      case 0x05: {  // bytes / str
+        if (!need(4)) return;
+        uint64_t l = u32();
+        if (l > max_len) {
+          err = 1;
+          return;
+        }
+        if (!need(l)) return;
+        emit(tag, (int64_t)pos, (int64_t)l);
+        pos += l;
+        return;
+      }
+      case 0x06:
+      case 0x07: {  // tuple / list
+        if (!need(4)) return;
+        uint64_t count = u32();
+        if (count > len - pos) {  // each element costs >= 1 byte
+          err = 1;
+          return;
+        }
+        if (!emit(tag, (int64_t)count, 0)) return;
+        for (uint64_t i = 0; i < count && !err; ++i) value(depth + 1);
+        return;
+      }
+      case 0x08: {  // dict
+        if (!need(4)) return;
+        uint64_t count = u32();
+        if (2 * count > len - pos) {
+          err = 1;
+          return;
+        }
+        if (!emit(tag, (int64_t)count, 0)) return;
+        for (uint64_t i = 0; i < 2 * count && !err; ++i) value(depth + 1);
+        return;
+      }
+      case 0x10: {  // struct: name u8-len, then fields value
+        if (!need(1)) return;
+        uint64_t nl = d[pos++];
+        if (!need(nl)) return;
+        if (!emit(0x10, (int64_t)pos, (int64_t)nl)) return;
+        pos += nl;
+        value(depth + 1);
+        return;
+      }
+      case 0x11: {  // group: name u8-len, group u8, payload u32-len
+        if (!need(1)) return;
+        uint64_t nl = d[pos++];
+        if (!need(nl)) return;
+        if (!emit(0x11, (int64_t)pos, (int64_t)nl)) return;
+        pos += nl;
+        if (!need(5)) return;
+        uint8_t grp = d[pos++];
+        uint64_t l = u32();
+        if (l > max_len) {
+          err = 1;
+          return;
+        }
+        if (!need(l)) return;
+        if (!emit(grp, (int64_t)pos, (int64_t)l)) return;
+        pos += l;
+        return;
+      }
+      default:
+        err = 1;
+        return;
+    }
+  }
+};
+}  // namespace
+
+int64_t hbe_serde_scan(const uint8_t* data, uint64_t len, int64_t* out,
+                       uint64_t max_triples, int64_t max_depth,
+                       uint64_t max_len) {
+  SerdeScan s{data, len, 0, out, max_triples, 0, max_depth, max_len};
+  s.value(0);
+  if (!s.err && s.pos != s.len) s.err = 1;  // trailing bytes
+  if (s.err == 2) return -2;
+  if (s.err) return -1;
+  return (int64_t)s.n;
+}
+
+// --- vectorized Lagrange interpolation / combine ---------------------------
+//
+// The era-change batch tail's last Python-bigint stage: SyncKeyGen
+// generate() interpolates f(0) once per complete proposal, and the
+// scalar-suite PublicKeySet combines run the same Lagrange sum per
+// signature/decryption.  These mirror crypto/poly.py interpolate()
+// EXACTLY (same num/den products mod r, same f(0) value), batched so
+// one C call covers a whole generate() / combine.
+
+// sum over `n_groups` groups of interpolate_at_0(group) mod r — ONE
+// call for SyncKeyGen.generate()'s per-proposal interpolations (the
+// secret share is the sum) or, with n_groups = 1, a plain Lagrange
+// combine.  xs: flat positive evaluation points; ys_be: flat 32-byte BE
+// values < r; counts[g]: points in group g.  All denominators across
+// every group share ONE Fermat inversion (the Montgomery batch trick of
+// poly.lagrange_coefficients — a per-point invmod at 255 squarings each
+// measured SLOWER than CPython's extended-gcd pow(-1)).  The sum equals
+// poly.interpolate's per-group value exactly (same products mod r).
+// Returns 1 and fills out32, or 0 when the modulus is not this build's
+// R_MOD / a point is invalid / a denominator is zero (caller falls back
+// to the Python path — never a silent wrong value).
+int32_t hbe_scalar_interp_sum(const int32_t* xs, const uint8_t* ys_be,
+                              const int32_t* counts, int32_t n_groups,
+                              const uint8_t* r_be, uint8_t* out32) {
+  if (n_groups < 1 || n_groups > (1 << 20)) return 0;
+  if (!(u256_from_be(r_be, 32) == R_MOD)) return 0;
+  size_t total = 0;
+  for (int32_t g = 0; g < n_groups; ++g) {
+    if (counts[g] < 1 || counts[g] > 65536) return 0;
+    total += (size_t)counts[g];
+  }
+  // Pass 1 (round 15): per-group numerators via prefix/suffix products
+  // in the Montgomery domain (O(cnt) one-REDC muls) and denominators
+  // through the dispatched batch kernel (field_plane.h) — exactly the
+  // same products mod r the old O(cnt^2) mulmod loops computed, so the
+  // sum stays byte-identical to poly.interpolate in both SIMD arms.
+  std::vector<U256> nums_m(total), dens(total), ys(total);
+  {
+    const int32_t* gx = xs;
+    const uint8_t* gy = ys_be;
+    size_t base = 0;
+    std::vector<int64_t> xs64;
+    std::vector<U256> xs_m, pre, suf;
+    for (int32_t g = 0; g < n_groups; ++g) {
+      int32_t cnt = counts[g];
+      xs64.resize(cnt);
+      for (int32_t k = 0; k < cnt; ++k) {
+        if (gx[k] <= 0) return 0;
+        ys[base + k] = u256_from_be(gy + 32 * (size_t)k, 32);
+        if (!(u256_cmp(ys[base + k], R_MOD) < 0)) return 0;
+        xs64[k] = gx[k];
+      }
+      hbf::lagrange_dens(xs64.data(), cnt, dens[base].w);
+      for (int32_t k = 0; k < cnt; ++k)
+        if (u256_is_zero(dens[base + k])) return 0;  // duplicate x
+      xs_m.resize(cnt);
+      for (int32_t k = 0; k < cnt; ++k) {
+        U256 x = {{(uint64_t)xs64[k], 0, 0, 0}};
+        xs_m[k] = to_mont(x);
+      }
+      pre.assign(cnt + 1, ONE_MONT);
+      suf.assign(cnt + 1, ONE_MONT);
+      for (int32_t k = 0; k < cnt; ++k)
+        pre[k + 1] = mont_mul(pre[k], xs_m[k]);
+      for (int32_t k = cnt; k-- > 0;) suf[k] = mont_mul(suf[k + 1], xs_m[k]);
+      for (int32_t k = 0; k < cnt; ++k)
+        nums_m[base + k] = mont_mul(pre[k], suf[k + 1]);
+      gx += cnt;
+      gy += (size_t)cnt * 32;
+      base += (size_t)cnt;
+    }
+  }
+  // Pass 2: one shared inversion, then accumulate y*num*den^-1 — the
+  // chain runs in the Montgomery domain; each term converts back
+  // through its final one-REDC products (exact canonical values).
+  std::vector<U256> prefix(total + 1);
+  prefix[0] = ONE_MONT;
+  std::vector<U256> dens_m(total);
+  for (size_t i = 0; i < total; ++i) dens_m[i] = to_mont(dens[i]);
+  for (size_t i = 0; i < total; ++i)
+    prefix[i + 1] = mont_mul(prefix[i], dens_m[i]);
+  U256 inv_acc;
+  hbf::mont_inv4(prefix[total].w, inv_acc.w);
+  U256 acc = U256_ZERO;
+  for (size_t i = total; i-- > 0;) {
+    U256 dinv_m = mont_mul(inv_acc, prefix[i]);
+    inv_acc = mont_mul(inv_acc, dens_m[i]);
+    // mont_mul(ys, nums_m) = ys*num (canonical); then *dinv likewise.
+    U256 t = mont_mul(ys[i], nums_m[i]);
+    acc = addmod(acc, mont_mul(t, dinv_m));
+  }
+  u256_to_be32(acc, out32);
+  return 1;
+}
+
+// Scalar-suite combine_decryption_shares in one call: Lagrange-combine
+// the shares at 0, then unmask v with kdf(canonical(b"kem", acc)) —
+// byte-identical to keys.PublicKeySet.combine_decryption_shares over
+// ScalarSuite (the kdf/canonical framing is the shared scalar-KEM
+// code the equivalence suites already pin).  Returns 1 and fills
+// out[v_len], or 0 (caller falls back).
+int32_t hbe_scalar_combine_unmask(const int32_t* xs, int32_t count,
+                                  const uint8_t* ys_be, const uint8_t* r_be,
+                                  const uint8_t* v, uint64_t v_len,
+                                  uint8_t* out) {
+  uint8_t acc_be[32];
+  if (!hbe_scalar_interp_sum(xs, ys_be, &count, 1, r_be, acc_be)) return 0;
+  Bytes seed;
+  canon_append(seed, "kem");
+  canon_append(seed, Bytes((const char*)acc_be, 32));
+  Bytes mask = kdf_stream(seed, v_len);
+  for (uint64_t i = 0; i < v_len; ++i) out[i] = v[i] ^ (uint8_t)mask[i];
+  return 1;
+}
+
+// Row evaluations for ack building (Poly.eval at x = 1..n_points):
+// coeffs_be = n_coeffs 32-byte BE scalars (ascending degree), out =
+// n_points * 32 bytes.
+void hbe_dkg_row_evals(const uint8_t* coeffs_be, int32_t n_coeffs,
+                       int32_t n_points, uint8_t* out) {
+  std::vector<U256> cs(n_coeffs);
+  for (int32_t k = 0; k < n_coeffs; ++k)
+    cs[k] = u256_from_be(coeffs_be + 32 * k, 32);
+  for (int32_t p = 0; p < n_points; ++p) {
+    U256 x = {{(uint64_t)(p + 1), 0, 0, 0}};
+    U256 xm = to_mont(x);  // one-side-Montgomery Horner, see dkg_row
+    U256 acc = U256_ZERO;
+    for (int32_t k = n_coeffs - 1; k >= 0; --k)
+      acc = addmod(mont_mul(acc, xm), cs[k]);
+    u256_to_be32(acc, out + 32 * p);
+  }
+}
+
+// This build's NodeSet width.
+int32_t hbe_words() { return HBE_WORDS; }
+
+// --- SIMD field-plane dispatch + kernel test surface (round 15) ------------
+//
+// The vectorized field-arithmetic plane (native/field_plane.h /
+// native/field_ifma.cpp) dispatches per call: AVX-512 IFMA when the
+// build compiled it AND the host advertises it AND HBBFT_TORCH_SIMD is
+// not "0".  hbe_simd_force flips arms in-process (-1 = back to auto) so
+// the equivalence/fuzz tests can pin both arms in one interpreter; the
+// setting is process-global and read with relaxed atomics (flip only
+// between runs).
+
+int32_t hbe_simd_compiled() { return hbf_ifma_compiled(); }
+int32_t hbe_simd_mode() { return hbf::simd_mode(); }
+int32_t hbe_simd_force(int32_t mode) { return hbf::simd_force(mode); }
+
+// Elementwise batched a*b mod r over 32-byte BE scalars (fuzz surface
+// for the dispatched kernel; at least one side of each pair < r).
+void hbe_field_mul_batch(const uint8_t* a_be, const uint8_t* b_be, int32_t n,
+                         uint8_t* out_be) {
+  if (n <= 0) return;
+  std::vector<U256> a(n), b(n), out(n);
+  for (int32_t i = 0; i < n; ++i) {
+    a[i] = u256_from_be(a_be + 32 * i, 32);
+    b[i] = u256_from_be(b_be + 32 * i, 32);
+  }
+  hbf::mul_batch(a[0].w, b[0].w, out[0].w, (size_t)n);
+  for (int32_t i = 0; i < n; ++i) u256_to_be32(out[i], out_be + 32 * i);
+}
+
+// --- Batched sha3 plane test/stats surface (round 17) ----------------------
+
+// SHA3-256 of `count` contiguous messages of `msg_len` bytes; 32-byte
+// digests contiguous at out.  The sha3-plane fuzz surface: dispatches
+// exactly as the engine's kdf/Merkle consumers do (8-lane arm for full
+// groups when enabled, scalar tail), so both arms are pinnable from the
+// tests via hbe_simd_force.
+void hbe_sha3_batch(const uint8_t* msgs, uint64_t msg_len, uint64_t count,
+                    uint8_t* out) {
+  hbs::sha3_256_batch(msgs, (size_t)msg_len, (size_t)count, out);
+}
+
+// Plane counters since process start: {batch_calls, batch_msgs,
+// ifma_msgs, single_msgs}.  Library-global (the plane is one dispatch
+// point, not per-engine); benchmark lines report deltas or totals.
+void hbe_sha3_stats(uint64_t out[4]) {
+  hbs::Sha3Stats& s = hbs::stats();
+  out[0] = s.batch_calls.load(std::memory_order_relaxed);
+  out[1] = s.batch_msgs.load(std::memory_order_relaxed);
+  out[2] = s.ifma_msgs.load(std::memory_order_relaxed);
+  out[3] = s.single_msgs.load(std::memory_order_relaxed);
+}
+
+// Epoch-arena telemetry across this engine's nodes: {max per-node
+// high-water mark (bytes/epoch), sum of per-node high-water marks,
+// total watermark resets, recycle knob (HBBFT_TORCH_ARENA)}.  Benchmark
+// lines report these so arena A/Bs are self-documenting.
+void hbe_arena_stats(void* h, uint64_t out[4]) {
+  Engine& e = *(Engine*)h;
+  uint64_t mx = 0, sum = 0, rs = 0;
+  for (Node& nd : e.nodes) {
+    if ((uint64_t)nd.arena.hwm > mx) mx = nd.arena.hwm;
+    sum += nd.arena.hwm;
+    rs += nd.arena.resets;
+  }
+  out[0] = mx;
+  out[1] = sum;
+  out[2] = rs;
+  out[3] = e.arena_recycle ? 1 : 0;
+}
+
+// sum_i a_i*b_i mod r (the combine-sum kernel's fuzz surface).
+void hbe_field_dot(const uint8_t* a_be, const uint8_t* b_be, int32_t n,
+                   uint8_t* out32) {
+  if (n <= 0) {
+    std::memset(out32, 0, 32);
+    return;
+  }
+  std::vector<U256> a(n), b(n);
+  for (int32_t i = 0; i < n; ++i) {
+    a[i] = u256_from_be(a_be + 32 * i, 32);
+    b[i] = u256_from_be(b_be + 32 * i, 32);
+  }
+  U256 acc;
+  hbf::dot_batch(a[0].w, b[0].w, (size_t)n, acc.w);
+  u256_to_be32(acc, out32);
+}
+
+// Lagrange coefficients at 0 for x_i = idxs[i]+1 (exactly the engine's
+// combine-path lagrange(); oracle-checked against crypto/poly.py).
+void hbe_field_lagrange(const int32_t* idxs, int32_t k, uint8_t* out_be) {
+  if (k <= 0) return;
+  std::vector<int> v(idxs, idxs + k);
+  std::vector<U256> coeffs = lagrange(v);
+  for (int32_t i = 0; i < k; ++i) u256_to_be32(coeffs[i], out_be + 32 * i);
+}
+
+// acc64 (64-byte BE) = sum_i coeffs[i]*x[i] as an exact integer (the
+// RLC accumulate kernel's fuzz surface; coeffs are 8-byte BE).
+void hbe_field_rlc_accum(const uint8_t* x_be, const uint8_t* coeffs_be,
+                         int32_t n, uint8_t* acc64_be) {
+  if (n <= 0) {
+    std::memset(acc64_be, 0, 64);
+    return;
+  }
+  std::vector<U256> x(n);
+  std::vector<uint64_t> cs(n);
+  for (int32_t i = 0; i < n; ++i) {
+    x[i] = u256_from_be(x_be + 32 * i, 32);
+    uint64_t c = 0;
+    for (int j = 0; j < 8; ++j) c = (c << 8) | coeffs_be[8 * i + j];
+    cs[i] = c;
+  }
+  uint64_t acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  hbf::rlc_accum(x[0].w, cs.data(), (size_t)n, acc);
+  for (int i = 0; i < 8; ++i) {
+    uint64_t w = acc[7 - i];
+    for (int j = 0; j < 8; ++j)
+      acc64_be[8 * i + j] = (uint8_t)(w >> (56 - 8 * j));
+  }
+}
+
+void* hbe_create(int32_t n, int32_t f) {
+  // MAX_NODES = this build's NodeSet width (the loader picks a wide
+  // enough build); 65535 = the GF(2^16) codec's point budget.
+  if (n < 1 || n > MAX_NODES || n > 65535 || f < 0 || 3 * f >= n)
+    return nullptr;
+  Engine* e = new Engine();
+  e->n = n;
+  e->f = f;
+  e->nodes.resize(n);
+  for (int i = 0; i < n; ++i) e->nodes[i].id = i;
+  const char* g = getenv("HBBFT_TORCH_CT_HASH_CACHE");
+  e->ct_hash_cache = !(g && g[0] == '0' && !g[1]);
+  const char* r = getenv("HBBFT_TORCH_COIN_RLC");
+  e->rlc = !(r && r[0] == '0' && !r[1]);
+  const char* a = getenv("HBBFT_TORCH_ARENA");
+  e->arena_recycle = !(a && a[0] == '0' && !a[1]);
+  return e;
+}
+
+void hbe_destroy(void* h) { delete (Engine*)h; }
+
+void hbe_set_callbacks(void* h, BatchEventCb batch_cb, ContribCb contrib_cb) {
+  Engine* e = (Engine*)h;
+  e->batch_cb = batch_cb;
+  e->contrib_cb = contrib_cb;
+}
+
+void hbe_set_silent(void* h, int32_t node, int32_t silent) {
+  ((Engine*)h)->nodes[node].silent = silent != 0;
+}
+
+// (Re)initialize a node's HoneyBadger for an era.  sk_share: 32B BE or
+// NULL (observer); pk_shares: n x 32B BE commitment evaluations (by
+// validator index == node id); session: the HB session id bytes
+// (canonical(dhb_session, era) — computed by the Python layer);
+// sched_kind/n: EncryptionSchedule.
+void hbe_init_node(void* h, int32_t node, int32_t era, const uint8_t* session,
+                   uint64_t session_len, const int32_t* val_ids, int32_t n_val,
+                   int32_t era_f, const uint8_t* sk_share,
+                   const uint8_t* pk_shares, int32_t max_future_epochs,
+                   int32_t sched_kind, int32_t sched_n,
+                   int32_t subset_handling) {
+  Engine* e = (Engine*)h;
+  Node& nd = e->nodes[node];
+  nd.era = era;
+  nd.has_share = sk_share != nullptr;
+  if (sk_share) nd.sk_share = u256_from_be(sk_share, 32);
+  nd.val_ids.assign(val_ids, val_ids + n_val);
+  std::sort(nd.val_ids.begin(), nd.val_ids.end());
+  nd.val_index.assign(e->n, -1);
+  for (int i = 0; i < n_val; ++i) nd.val_index[nd.val_ids[i]] = i;
+  nd.era_n = n_val;
+  nd.era_f = era_f;
+  nd.pk_shares.resize(e->n);
+  for (int i = 0; i < e->n; ++i)
+    nd.pk_shares[i] = u256_from_be(pk_shares + 32 * i, 32);
+  nd.hb = Hb();
+  nd.hb_init = true;
+  nd.hb.session_id.assign((const char*)session, session_len);
+  nd.hb.max_future_epochs = max_future_epochs;
+  nd.hb.sched_kind = sched_kind;
+  nd.hb.sched_n = sched_n;
+  nd.hb.subset_handling = subset_handling;
+  Ctx ctx(*e, nd);
+  ctx.hb_reset_state(nd.hb.state, 0);
+}
+
+// Era restart: re-init + replay the buffered next-era messages
+// (dynamic_honey_badger._restart_era + _replay_next_era).  Runs as a
+// nested unit so it can be called from inside a batch callback.
+void hbe_restart_node(void* h, int32_t node, int32_t era,
+                      const uint8_t* session, uint64_t session_len,
+                      const int32_t* val_ids, int32_t n_val, int32_t era_f,
+                      const uint8_t* sk_share, const uint8_t* pk_shares,
+                      int32_t max_future_epochs, int32_t sched_kind,
+                      int32_t sched_n, int32_t subset_handling) {
+  hbe_init_node(h, node, era, session, session_len, val_ids, n_val, era_f,
+                sk_share, pk_shares, max_future_epochs, sched_kind, sched_n,
+                subset_handling);
+}
+
+// Replay the buffered next-era messages (DynamicHoneyBadger's
+// _replay_next_era — the Python layer calls this at the exact point its
+// reference implementation does, after the batch output).
+void hbe_replay_era(void* h, int32_t node) {
+  Engine* e = (Engine*)h;
+  Node& nd = e->nodes[node];
+  std::vector<std::pair<int, EMsg>> buffered;
+  buffered.swap(nd.next_era_buffer);
+  if (buffered.empty()) return;
+  if (e->depth > 0) {
+    Ctx ctx(*e, nd);
+    for (auto& sm : buffered) ctx.deliver(sm.first, sm.second);
+    ctx.commit_events();
+  } else {
+    engine_unit(*e, nd, [&](Ctx& ctx) {
+      for (auto& sm : buffered) ctx.deliver(sm.first, sm.second);
+    });
+  }
+}
+
+// Propose a payload (already serialized + threshold-encrypted by the
+// Python layer) for the node's CURRENT epoch.  Returns 1 if accepted,
+// 0 if the node already proposed this epoch (caller holds and retries).
+int32_t hbe_propose(void* h, int32_t node, int32_t era, const uint8_t* payload,
+                    uint64_t len) {
+  Engine* e = (Engine*)h;
+  Node& nd = e->nodes[node];
+  if (nd.silent || nd.era != era || !nd.hb_init) return 0;
+  if (nd.hb.state.proposed) return 0;
+  Bytes data((const char*)payload, len);
+  if (e->depth > 0) {
+    Ctx ctx(*e, nd);
+    ctx.hb_propose(data);
+    ctx.commit_events();
+  } else {
+    engine_unit(*e, nd, [&](Ctx& ctx) { ctx.hb_propose(data); });
+    // VirtualNet.send_input's _maybe_flush; adversary-driven inputs to
+    // faulty nodes (broadcast_input's on_input_to_faulty path) don't
+    // tick the flush counter.
+    if (!nd.tampered) engine_count_unit(*e);
+  }
+  return 1;
+}
+
+uint64_t hbe_run(void* h, uint64_t max_deliveries) {
+  return engine_run(*(Engine*)h, max_deliveries);
+}
+// [port] Stop the engine at the flush in progress (called from a verify
+// [port] callback whose backend failed): see the header's edit 3.
+void hbe_abort(void* h) { ((Engine*)h)->aborted = true; }  // [port]
+
+// Multicore run (engine_run_mt notes above).  Falls back to the
+// sequential loop whenever a sequential-only feature is active
+// (external crypto's flush cadence, adversary hooks) — the Python
+// layer also rejects those combinations loudly.
+uint64_t hbe_run_mt(void* h, uint64_t max_deliveries, int32_t n_threads) {
+  Engine& e = *(Engine*)h;
+  bool tampered = false;
+  for (auto& nd : e.nodes) tampered = tampered || nd.tampered;
+  // scalar_deferred: the deferred flush cadence is a sequential
+  // ordering, exactly like ext mode's (the Python layer also rejects
+  // threads > 1 with a scalar flush_every != 1).  Cluster mode is
+  // sequential too (egress buffer + encode memo are single-writer).
+  if (n_threads <= 1 || e.ext || e.pre_crank_cb || tampered ||
+      scalar_deferred(e) || e.cluster.local >= 0)
+    return engine_run(e, max_deliveries);
+  return engine_run_mt(e, max_deliveries, n_threads);
+}
+
+uint64_t hbe_queue_len(void* h) { return ((Engine*)h)->queue.size(); }
+uint64_t hbe_delivered(void* h) { return ((Engine*)h)->delivered; }
+int32_t hbe_epoch(void* h, int32_t node) {
+  Node& nd = ((Engine*)h)->nodes[node];
+  return nd.hb_init ? nd.hb.epoch : -1;
+}
+int32_t hbe_era(void* h, int32_t node) { return ((Engine*)h)->nodes[node].era; }
+int32_t hbe_has_proposed(void* h, int32_t node) {
+  Node& nd = ((Engine*)h)->nodes[node];
+  return (nd.hb_init && nd.hb.state.proposed) ? 1 : 0;
+}
+
+// Current batch accessors (valid during a batch callback: the engine
+// thread holds the recursive cb_mu across batch_cb, and these are only
+// legal to call from inside that callback — same thread, lock held).
+// lint: holds-cb_mu (batch-callback context, see comment above)
+int32_t hbe_batch_size(void* h) { return (int32_t)((Engine*)h)->cur_batch.size(); }
+int32_t hbe_batch_proposer(void* h, int32_t i) {
+  return ((Engine*)h)->cur_batch[i].first;  // lint: holds-cb_mu (batch cb)
+}
+uint64_t hbe_batch_payload_len(void* h, int32_t i) {
+  return ((Engine*)h)->cur_batch[i].second->size();  // lint: holds-cb_mu (batch cb)
+}
+void hbe_batch_payload(void* h, int32_t i, uint8_t* out) {
+  const Bytes& b = *((Engine*)h)->cur_batch[i].second;  // lint: holds-cb_mu (batch cb)
+  std::memcpy(out, b.data(), b.size());
+}
+
+// -- external-crypto mode --------------------------------------------------
+
+// Enable external (opaque-bytes) crypto: all share signing, combining,
+// ciphertext parsing, and verification happen Python-side through the
+// callbacks; flush_every mirrors VirtualNet's knob (0 = flush only when
+// the delivery queue runs dry — maximal batch amortization; identical
+// protocol outputs by the deferred-verification invariant).
+void hbe_set_ext_crypto(void* h, int32_t flush_every, VerifyBatchCb verify_cb,
+                        SignCb sign_cb, CombineCb combine_cb,
+                        CtParseCb ct_parse_cb) {
+  Engine* e = (Engine*)h;
+  e->ext = true;
+  e->flush_every = flush_every;
+  e->verify_cb = verify_cb;
+  e->sign_cb = sign_cb;
+  e->combine_cb = combine_cb;
+  e->ct_parse_cb = ct_parse_cb;
+}
+
+void hbe_set_flush_every(void* h, int32_t flush_every) {
+  ((Engine*)h)->flush_every = flush_every;
+}
+
+// Scalar RLC deferred verification on/off (round 7) — overrides the
+// HBBFT_TORCH_COIN_RLC default read at hbe_create.  0 restores the
+// pre-round-7 path (submit-time verdicts, per-unit eager flush); with
+// 1, hbe_set_flush_every governs the scalar flush cadence (1 = the old
+// flush points exactly, 0 = queue-dry).
+void hbe_set_rlc(void* h, int32_t enabled) {
+  ((Engine*)h)->rlc = enabled != 0;
+}
+
+// -- adversarial scheduling -------------------------------------------------
+
+void hbe_set_pre_crank(void* h, PreCrankCb cb) {
+  ((Engine*)h)->pre_crank_cb = cb;
+}
+
+// Swap two pending queue entries (valid during a PreCrankCb call).
+void hbe_queue_swap(void* h, uint64_t i, uint64_t j) {
+  Engine* e = (Engine*)h;
+  if (i < e->queue.size() && j < e->queue.size() && i != j)
+    std::swap(e->queue[i], e->queue[j]);
+}
+
+int32_t hbe_queue_dest(void* h, uint64_t i) {
+  Engine* e = (Engine*)h;
+  return i < e->queue.size() ? e->queue[i].dest : -1;
+}
+
+// -- tampering adversary ----------------------------------------------------
+//
+// hbe_set_tamper installs the callback; hbe_set_tampered marks a node
+// adversary-owned (it keeps running the real algorithm — contrast
+// hbe_set_silent).  The hbe_tamper_* accessors/mutators are valid ONLY
+// during a TamperCb call and act on the private clone of the outgoing
+// message (net/adversary.py TamperingAdversary's rewrite set: flipped
+// bvals/aux/term/conf, doubled shares, corrupted roots and proofs).
+
+void hbe_set_tamper(void* h, TamperCb cb) { ((Engine*)h)->tamper_cb = cb; }
+
+void hbe_set_tampered(void* h, int32_t node, int32_t flag) {
+  ((Engine*)h)->nodes[node].tampered = flag != 0;
+}
+
+int32_t hbe_tamper_bval(void* h) {
+  Engine* e = (Engine*)h;
+  return e->cur_tamper ? e->cur_tamper->bval : -1;
+}
+
+void hbe_tamper_set_bval(void* h, int32_t v) {
+  Engine* e = (Engine*)h;
+  if (e->cur_tamper) e->cur_tamper->bval = (uint8_t)v;
+}
+
+// Flip the low bit of the first root byte (adversary.py flip_root).
+void hbe_tamper_flip_root(void* h) {
+  Engine* e = (Engine*)h;
+  if (e->cur_tamper) e->cur_tamper->root[0] ^= 1;
+}
+
+// Corrupt the Merkle proof's leaf value (adversary.py ValueMsg/EchoMsg
+// branch: flip the first byte, or b"\x01" for an empty value).  Clones
+// the shared ProofData — other queue references keep the honest proof —
+// and resets the validity memo (it is keyed to the object).
+void hbe_tamper_corrupt_proof(void* h) {
+  Engine* e = (Engine*)h;
+  if (!e->cur_tamper || !e->cur_tamper->proof) return;
+  auto bad = std::make_shared<ProofData>(*e->cur_tamper->proof);
+  if (bad->value.empty())
+    bad->value = Bytes(1, '\x01');
+  else
+    bad->value[0] ^= 1;
+  bad->valid_memo = -1;
+  bad->valid_n = 0;
+  e->cur_tamper->proof = std::move(bad);
+}
+
+// Share accessors: scalar mode exposes the 32-byte BE scalar; external
+// mode the opaque share bytes.  The setter replaces whichever is live.
+uint64_t hbe_tamper_share_len(void* h) {
+  Engine* e = (Engine*)h;
+  if (!e->cur_tamper) return 0;
+  if (e->cur_tamper->share_b) return e->cur_tamper->share_b->size();
+  return 32;
+}
+
+void hbe_tamper_share(void* h, uint8_t* out) {
+  Engine* e = (Engine*)h;
+  if (!e->cur_tamper) return;
+  if (e->cur_tamper->share_b) {
+    std::memcpy(out, e->cur_tamper->share_b->data(),
+                e->cur_tamper->share_b->size());
+    return;
+  }
+  u256_to_be32(e->cur_tamper->share, out);
+}
+
+void hbe_tamper_set_share(void* h, const uint8_t* data, uint64_t len) {
+  Engine* e = (Engine*)h;
+  if (!e->cur_tamper) return;
+  if (e->cur_tamper->share_b) {
+    e->cur_tamper->share_b =
+        std::make_shared<const Bytes>((const char*)data, len);
+    return;
+  }
+  e->cur_tamper->share = u256_from_be(data, len);
+}
+
+uint64_t hbe_pending_verifies(void* h) { return ((Engine*)h)->pool_items; }
+
+// Delivery profiling: accumulated rdtsc cycles / delivery counts by
+// message type (MsgType values 0..10).
+uint64_t hbe_prof_cycles(void* h, int32_t type) {
+  return ((Engine*)h)->prof_cycles[type & 15];
+}
+uint64_t hbe_prof_count(void* h, int32_t type) {
+  return ((Engine*)h)->prof_count[type & 15];
+}
+
+// Force a flush of all pending pools (top-level only).
+void hbe_flush(void* h) {
+  Engine* e = (Engine*)h;
+  if (e->aborted) return;  // [port]
+  if (e->pool_items > 0) {
+    if (e->ext)
+      engine_flush_ext(*e);
+    else if (scalar_deferred(*e))
+      engine_flush_scalar(*e);
+  }
+  cluster_announce(*e);  // no-op outside cluster mode
+}
+
+// Bytes-return helper for Sign/Combine callbacks: Python calls this with
+// the opaque `ret` handle it was given.
+void hbe_ret_bytes(void* ret, const uint8_t* data, uint64_t len) {
+  ((Bytes*)ret)->assign((const char*)data, len);
+}
+
+// Verify-request accessors (valid during a VerifyBatchCb call).
+int32_t hbe_vreq_kind(void* h, int32_t i) {
+  return ((Engine*)h)->cur_vreqs[i]->kind;
+}
+int32_t hbe_vreq_era(void* h, int32_t i) {
+  return ((Engine*)h)->cur_vreqs[i]->era;
+}
+int32_t hbe_vreq_sender(void* h, int32_t i) {
+  return ((Engine*)h)->cur_vreqs[i]->sender;
+}
+uint64_t hbe_vreq_doc_len(void* h, int32_t i) {
+  const Bytes* d = ((Engine*)h)->cur_vreqs[i]->doc;
+  return d ? d->size() : 0;
+}
+void hbe_vreq_doc(void* h, int32_t i, uint8_t* out) {
+  const Bytes* d = ((Engine*)h)->cur_vreqs[i]->doc;
+  if (d) std::memcpy(out, d->data(), d->size());
+}
+uint64_t hbe_vreq_ct_len(void* h, int32_t i) {
+  const Bytes* d = ((Engine*)h)->cur_vreqs[i]->ct;
+  return d ? d->size() : 0;
+}
+void hbe_vreq_ct(void* h, int32_t i, uint8_t* out) {
+  const Bytes* d = ((Engine*)h)->cur_vreqs[i]->ct;
+  if (d) std::memcpy(out, d->data(), d->size());
+}
+uint64_t hbe_vreq_share_len(void* h, int32_t i) {
+  const auto& s = ((Engine*)h)->cur_vreqs[i]->share;
+  return s ? s->size() : 0;
+}
+void hbe_vreq_share(void* h, int32_t i, uint8_t* out) {
+  const auto& s = ((Engine*)h)->cur_vreqs[i]->share;
+  if (s) std::memcpy(out, s->data(), s->size());
+}
+
+// Combine-share accessors (valid during a CombineCb call).
+int32_t hbe_comb_index(void* h, int32_t i) {
+  return ((Engine*)h)->cur_comb[i].first;
+}
+uint64_t hbe_comb_share_len(void* h, int32_t i) {
+  return ((Engine*)h)->cur_comb[i].second->size();
+}
+void hbe_comb_share(void* h, int32_t i, uint8_t* out) {
+  const Bytes* b = ((Engine*)h)->cur_comb[i].second;
+  std::memcpy(out, b->data(), b->size());
+}
+
+// -- cluster (one-engine-per-node) mode ------------------------------------
+//
+// hbe_set_local() switches an engine into cluster mode: only `local` is
+// driven; every emission toward another id is serde-encoded and
+// epoch-gated into an egress buffer (the native SenderQueue mirror —
+// ClusterState notes).  The runtime moves bytes in BATCHES: one
+// hbe_node_ingest_frames call per transport read burst, one
+// hbe_node_egress_drain per run — the message-boundary API that lets a
+// real-socket node keep the whole decode+handle loop native.
+
+void hbe_set_local(void* h, int32_t local, int32_t window) {
+  Engine* e = (Engine*)h;
+  e->cluster.local = local;
+  e->cluster.window = window;
+  e->cluster.peer_epoch.assign(e->n, {0, 0});
+  e->cluster.outbox.assign(e->n, {});
+}
+
+// Consume one protocol-message payload from peer `s` (sender bounds
+// already checked by the caller).  Decoded algo messages queue for the
+// local node; epoch_started announces update the peer window and
+// release held egress; codec-rejects count CL_BAD_PAYLOAD, exactly the
+// Python node's serde.try_loads + isinstance(SqMessage) gate.  Returns
+// true when the payload decoded to a consumable message.
+static bool cluster_consume_payload(Engine& e, ClusterState& c, int32_t s,
+                                    const uint8_t* p, uint64_t len) {
+  WireDecoded wm;
+  if (!wire_decode(p, len, wm)) {
+    c.stats[CL_BAD_PAYLOAD]++;
+    return false;
+  }
+  c.stats[CL_HANDLED]++;
+  if (wm.kind == 1)
+    cluster_on_epoch_started(e, s, wm.era, wm.epoch);
+  else if (wm.kind == 2) {
+    if (e.ext && (wm.msg.type == BA_COIN || wm.msg.type == HB_DECRYPT)) {
+      // External-crypto mode consumes opaque share bytes (share_b);
+      // the wire codec decoded the scalar grammar's 32-byte element
+      // into the U256 slot — rematerialize the exact BE bytes so the
+      // handlers route them to the verify-batch callback instead of
+      // the (keyless, in ext mode) internal scalar checks.
+      uint8_t be[32];
+      u256_to_be32(wm.msg.share, be);
+      wm.msg.share_b = std::make_shared<const Bytes>((const char*)be, 32);
+    }
+    e.queue.push_back(
+        {s, c.local, std::make_shared<const EMsg>(std::move(wm.msg))});
+  } else
+    c.stats[CL_IGNORED]++;
+  return true;
+}
+
+// Ingest one batch of MSG-frame payloads: senders[i] is the (transport-
+// authenticated) peer id of frame i, whose bytes are
+// buf[offsets[i]..offsets[i+1]).  Returns the number of consumable
+// frames, or -1 if not in cluster mode.
+int64_t hbe_node_ingest_frames(void* h, const int32_t* senders,
+                               const uint64_t* offsets, int32_t count,
+                               const uint8_t* buf) {
+  Engine& e = *(Engine*)h;
+  ClusterState& c = e.cluster;
+  if (c.local < 0) return -1;
+  int64_t handled = 0;
+  for (int32_t i = 0; i < count; ++i) {
+    int32_t s = senders[i];
+    if (s < 0 || s >= e.n || s == c.local) {
+      c.stats[CL_BAD_PAYLOAD]++;
+      continue;
+    }
+    if (cluster_consume_payload(e, c, s, buf + offsets[i],
+                                offsets[i + 1] - offsets[i]))
+      ++handled;
+  }
+  return handled;
+}
+
+// mirror: msgb-grammar
+// Ingest one transport read burst in WIRE form (round 20 coalescing):
+// record i from peer senders[i] covers buf[offsets[i]..offsets[i+1]).
+// nmsgs[i] == 0 means the record is one plain MSG payload; >= 1 means
+// an MSGB body in the framing grammar —
+//     body := count:u32be  ( len:u32be  bytes[len] ) * count
+// carrying that many messages, walked here with no Python slicing (the
+// whole point of the fast path).  The transport grammar-checked every
+// MSGB before handing it over, but each bound is re-checked: a
+// violation counts the record's remaining messages as bad_payload and
+// moves to the next record — defense in depth, never an OOB read.
+// Returns the number of consumable MESSAGES, or -1 if not cluster mode.
+int64_t hbe_node_ingest_wire(void* h, const int32_t* senders,
+                             const uint32_t* nmsgs, const uint64_t* offsets,
+                             int32_t count, const uint8_t* buf) {
+  Engine& e = *(Engine*)h;
+  ClusterState& c = e.cluster;
+  if (c.local < 0) return -1;
+  int64_t handled = 0;
+  for (int32_t i = 0; i < count; ++i) {
+    int32_t s = senders[i];
+    const uint8_t* p = buf + offsets[i];
+    uint64_t len = offsets[i + 1] - offsets[i];
+    uint32_t nm = nmsgs[i];
+    if (s < 0 || s >= e.n || s == c.local) {
+      c.stats[CL_BAD_PAYLOAD] += nm ? nm : 1;
+      continue;
+    }
+    if (nm == 0) {
+      if (cluster_consume_payload(e, c, s, p, len)) ++handled;
+      continue;
+    }
+    uint32_t declared = 0;
+    if (len >= 4)
+      declared = ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) |
+                 ((uint32_t)p[2] << 8) | (uint32_t)p[3];
+    uint64_t off = 4;
+    uint32_t done = 0;
+    bool ok = len >= 4 && declared == nm;
+    while (ok && done < nm) {
+      if (off + 4 > len) {
+        ok = false;
+        break;
+      }
+      uint64_t el = ((uint64_t)p[off] << 24) | ((uint64_t)p[off + 1] << 16) |
+                    ((uint64_t)p[off + 2] << 8) | (uint64_t)p[off + 3];
+      off += 4;
+      if (el > len - off) {
+        ok = false;
+        break;
+      }
+      if (cluster_consume_payload(e, c, s, p + off, el)) ++handled;
+      off += el;
+      ++done;
+    }
+    if (!ok || off != len)  // structural violation or trailing bytes
+      c.stats[CL_BAD_PAYLOAD] += (nm > done) ? (nm - done) : 1;
+  }
+  return handled;
+}
+
+// Bytes needed to drain the current egress batch (8-byte record header
+// per frame + payload bytes).
+uint64_t hbe_node_egress_bytes(void* h) {
+  ClusterState& c = ((Engine*)h)->cluster;
+  return c.egress_bytes + 8ull * c.egress.size();
+}
+
+// Drain ALL pending egress records into `out` as
+// [dest u32 LE][len u32 LE][payload]*; returns the record count, or -1
+// if `cap` is smaller than hbe_node_egress_bytes() (drains nothing).
+int64_t hbe_node_egress_drain(void* h, uint8_t* out, uint64_t cap) {
+  ClusterState& c = ((Engine*)h)->cluster;
+  uint64_t need = c.egress_bytes + 8ull * c.egress.size();
+  if (need > cap) return -1;
+  uint64_t pos = 0;
+  for (auto& rec : c.egress) {
+    uint32_t dest = (uint32_t)rec.first;
+    uint32_t len = (uint32_t)rec.second->size();
+    out[pos] = (uint8_t)dest;
+    out[pos + 1] = (uint8_t)(dest >> 8);
+    out[pos + 2] = (uint8_t)(dest >> 16);
+    out[pos + 3] = (uint8_t)(dest >> 24);
+    out[pos + 4] = (uint8_t)len;
+    out[pos + 5] = (uint8_t)(len >> 8);
+    out[pos + 6] = (uint8_t)(len >> 16);
+    out[pos + 7] = (uint8_t)(len >> 24);
+    std::memcpy(out + pos + 8, rec.second->data(), len);
+    pos += 8ull + len;
+  }
+  int64_t nrec = (int64_t)c.egress.size();
+  c.egress.clear();
+  c.egress_bytes = 0;
+  c.enc_src = nullptr;  // release the broadcast-memo pin with the batch
+  c.enc_payload = nullptr;
+  return nrec;
+}
+
+// mirror: msgb-grammar
+// Drain ALL pending egress as per-destination MSGB bodies (round 20
+// coalescing): records are
+//     [dest u32 LE][nmsg u32 LE][body_len u32 LE][body]*
+// where body is the framing MSGB grammar —
+//     body := count:u32be  ( len:u32be  bytes[len] ) * count
+// (big-endian like the frame headers; count == nmsg).  Grouping is per
+// DEST across the whole batch: broadcast emission pushes one entry per
+// dest consecutively, so grouping consecutive same-dest runs would
+// coalesce nothing.  Per-dest FIFO — the only order the transport
+// guarantees — is preserved.  Bodies split when the next element would
+// push past `max_body` payload bytes (a single oversized element still
+// gets its own nmsg==1 record; the Python caller strips those to plain
+// MSG frames, exactly the uncoalesced arm's bytes).  Returns bytes
+// written, or -1 if `cap` can't hold the worst case (drains nothing).
+int64_t hbe_node_egress_drain_msgb(void* h, uint64_t max_body, uint8_t* out,
+                                   uint64_t cap) {
+  Engine& e = *(Engine*)h;
+  ClusterState& c = e.cluster;
+  // Worst case: every entry its own record — 12B record header + 4B
+  // count + 4B element header + payload.
+  uint64_t worst = c.egress_bytes + 20ull * c.egress.size();
+  if (worst > cap) return -1;
+  if (max_body < 16) max_body = 16;
+  std::vector<std::vector<uint32_t>> by_dest(e.n);
+  for (uint32_t i = 0; i < (uint32_t)c.egress.size(); ++i) {
+    int32_t d = c.egress[i].first;
+    if (d >= 0 && d < e.n) by_dest[(size_t)d].push_back(i);
+  }
+  auto wr32le = [&](uint64_t at, uint32_t v) {
+    out[at] = (uint8_t)v;
+    out[at + 1] = (uint8_t)(v >> 8);
+    out[at + 2] = (uint8_t)(v >> 16);
+    out[at + 3] = (uint8_t)(v >> 24);
+  };
+  auto wr32be = [&](uint64_t at, uint32_t v) {
+    out[at] = (uint8_t)(v >> 24);
+    out[at + 1] = (uint8_t)(v >> 16);
+    out[at + 2] = (uint8_t)(v >> 8);
+    out[at + 3] = (uint8_t)v;
+  };
+  uint64_t pos = 0;
+  for (int32_t d = 0; d < e.n; ++d) {
+    auto& idxs = by_dest[(size_t)d];
+    uint32_t i = 0;
+    while (i < (uint32_t)idxs.size()) {
+      uint64_t hdr = pos;    // record header, written once nmsg is known
+      uint64_t body0 = hdr + 12;  // body starts with the count field
+      pos = body0 + 4;
+      uint32_t nmsg = 0;
+      uint64_t body_len = 4;
+      while (i < (uint32_t)idxs.size()) {
+        const BytesP& pl = c.egress[idxs[i]].second;
+        uint64_t need = 4ull + pl->size();
+        if (nmsg > 0 && body_len + need > max_body) break;
+        wr32be(pos, (uint32_t)pl->size());
+        std::memcpy(out + pos + 4, pl->data(), pl->size());
+        pos += need;
+        body_len += need;
+        ++nmsg;
+        ++i;
+      }
+      wr32le(hdr, (uint32_t)d);
+      wr32le(hdr + 4, nmsg);
+      wr32le(hdr + 8, (uint32_t)(pos - body0));
+      wr32be(body0, nmsg);
+    }
+  }
+  c.egress.clear();
+  c.egress_bytes = 0;
+  c.enc_src = nullptr;  // release the broadcast-memo pin with the batch
+  c.enc_payload = nullptr;
+  return (int64_t)pos;
+}
+
+// ClStat counters (see the enum): 0 handled, 1 bad_payload, 2 ignored,
+// 3 dropped_stale, 4 held, 5 released, 6 sent, 7 announces.
+uint64_t hbe_node_stat(void* h, int32_t idx) {
+  if (idx < 0 || idx >= 8) return 0;
+  return ((Engine*)h)->cluster.stats[idx];
+}
+
+// -- flight recorder ----------------------------------------------
+
+// Enable the milestone event ring with `cap` records (0 disables and
+// frees it).  One preallocation here; emitting never allocates.
+void hbe_trace_enable(void* h, uint32_t cap) {
+  TraceState& t = ((Engine*)h)->trace;
+  t.ring.assign(cap, TraceRec{});
+  t.ring.shrink_to_fit();
+  t.cap = cap;
+  t.head = t.tail = 0;
+  t.dropped = 0;
+}
+
+// Drain every retained record (oldest first) into `out` as packed
+// 32-byte little-endian structs {i64 ts_ns; i32 node, kind, a, b, c, d}.
+// Returns the record count, or -1 if `cap_bytes` is too small for the
+// current backlog (drains nothing — call again with a bigger buffer).
+int64_t hbe_trace_drain(void* h, uint8_t* out, uint64_t cap_bytes) {
+  TraceState& t = ((Engine*)h)->trace;
+  uint64_t count = t.head - t.tail;
+  if (count * sizeof(TraceRec) > cap_bytes) return -1;
+  for (uint64_t i = 0; i < count; ++i) {
+    std::memcpy(out + i * sizeof(TraceRec), &t.ring[(t.tail + i) % t.cap],
+                sizeof(TraceRec));
+  }
+  t.tail = t.head;
+  return (int64_t)count;
+}
+
+// Records pending in the ring (sizes the drain buffer).
+uint64_t hbe_trace_pending(void* h) {
+  TraceState& t = ((Engine*)h)->trace;
+  return t.head - t.tail;
+}
+
+// Total records lost to ring overflow since enable.
+uint64_t hbe_trace_dropped(void* h) {
+  return ((Engine*)h)->trace.dropped;
+}
+
+// -- wire-codec test surface ------------------------------------------------
+
+// Decode verdict for one MSG payload under the scalar pin: -1 reject,
+// 1 epoch_started, 2 algo engine message, 3 codec-valid-but-non-engine
+// (join_plan / bare-HbMessage algo).  Accept (> 0) must track Python's
+// `isinstance(serde.try_loads(data, ScalarSuite()), SqMessage)` exactly
+// — the fuzz-parity tests sweep corruptions against this.
+int32_t hbe_wire_classify(const uint8_t* data, uint64_t len) {
+  WireDecoded wm;
+  return wire_decode(data, len, wm) ? wm.kind : -1;
+}
+
+// Decode + re-encode one payload: pins the C encoder byte-for-byte
+// against serde.dumps for every engine-representable message.  Returns
+// the encoded length, -1 on decode reject, -2 if `cap` is too small,
+// -3 for messages encode cannot represent (kind 3, or node ids outside
+// the engine's int range).
+int64_t hbe_wire_roundtrip(const uint8_t* data, uint64_t len, uint8_t* out,
+                           uint64_t cap) {
+  WireDecoded wm;
+  if (!wire_decode(data, len, wm)) return -1;
+  Bytes enc;
+  if (wm.kind == 1) {
+    enc = wire_encode_epoch_started(wm.era, wm.epoch);
+  } else if (wm.kind == 2 && wm.msg.proposer >= 0) {
+    enc = wire_encode_algo(wm.msg);
+  } else {
+    return -3;
+  }
+  if (enc.size() > cap) return -2;
+  std::memcpy(out, enc.data(), enc.size());
+  return (int64_t)enc.size();
+}
+
+// Fault log accessors (per observing node).
+int32_t hbe_fault_count(void* h, int32_t node) {
+  return (int32_t)((Engine*)h)->nodes[node].faults.size();
+}
+int32_t hbe_fault_subject(void* h, int32_t node, int32_t i) {
+  return ((Engine*)h)->nodes[node].faults[i].subject;
+}
+const char* hbe_fault_kind(void* h, int32_t node, int32_t i) {
+  return ((Engine*)h)->nodes[node].faults[i].kind;
+}
+
+}  // extern "C"

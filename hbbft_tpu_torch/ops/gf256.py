@@ -9,13 +9,13 @@ generator 2.  The encoding matrix is a Vandermonde matrix normalized so
 its top K x K block is the identity (systematic: data shards pass
 through unchanged) — the same construction the reference crate uses.
 
-Implementation: numpy log/exp-table arithmetic.  The device path
-(:mod:`hbbft_tpu_torch.ops.device.gf256`) expresses the same encode/decode
-as GF(2) bit-matrix products.
+Implementation: numpy log/exp-table arithmetic, with the native C++
+fast path of :mod:`hbbft_tpu_torch.ops.native` where it builds (the same
+bytes).  The device path (:mod:`hbbft_tpu_torch.ops.device.gf256`)
+expresses the same encode/decode as GF(2) bit-matrix products.
 
-Copy of ``hbbft_tpu/ops/gf256.py`` without its native C++ fast paths,
-GF(2^16) codec for validator sets over 255 included (host only, as in
-the reference).
+Copy of ``hbbft_tpu/ops/gf256.py``, GF(2^16) codec for validator sets
+over 255 included (host only, as in the reference).
 """
 
 from __future__ import annotations
@@ -24,6 +24,11 @@ from functools import lru_cache
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+try:
+    from hbbft_tpu_torch.ops import native as _native
+except Exception:  # pragma: no cover - native plane is optional
+    _native = None
 
 _POLY = 0x11D
 
@@ -135,6 +140,10 @@ class ReedSolomon:
         assert len(data_shards) == self.k
         size = len(data_shards[0])
         assert all(len(s) == size for s in data_shards)
+        if _native is not None and _native.available():
+            out = _native.rs_encode(data_shards, self.n)
+            if out is not None:
+                return out
         data = np.frombuffer(b"".join(data_shards), dtype=np.uint8).reshape(
             self.k, size
         )
@@ -145,6 +154,10 @@ class ReedSolomon:
         """Any k shards (by index) -> the k data shards."""
         if len(shards) < self.k:
             raise ValueError(f"need {self.k} shards, got {len(shards)}")
+        if _native is not None and _native.available():
+            out = _native.rs_reconstruct(shards, self.k, self.n)
+            if out is not None:
+                return out
         idxs = sorted(shards)[: self.k]
         size = len(shards[idxs[0]])
         sub = self.matrix[idxs]
@@ -164,7 +177,9 @@ class ReedSolomon:
 # shards; validator sets beyond that erasure-code over GF(2^16)
 # (poly 0x1100B, generator 2 — verified primitive; 65535 points).
 # Symbols are 2 bytes, big-endian on the wire ('>u2'), so shard lengths
-# must be even (`ReedSolomon16.shard_align`).
+# must be even (`ReedSolomon16.shard_align`).  The native engine carries
+# the same tables/construction (csrc/native/sha3_gf.h) — pinned bit-for-bit
+# by tests/test_torch_native_dataplane.py.
 
 _POLY16 = 0x1100B
 
@@ -286,6 +301,10 @@ class ReedSolomon16:
         assert len(data_shards) == self.k
         size = len(data_shards[0])
         assert all(len(s) == size for s in data_shards)
+        if _native is not None and _native.available():
+            out = _native.rs16_encode(data_shards, self.n)
+            if out is not None:
+                return out
         data = np.stack([self._sym(s) for s in data_shards])
         parity = gf16_matmul(self.matrix[self.k:], data)
         return [bytes(s) for s in data_shards] + [self._bytes(p) for p in parity]
@@ -293,6 +312,10 @@ class ReedSolomon16:
     def reconstruct(self, shards: Dict[int, bytes]) -> List[bytes]:
         if len(shards) < self.k:
             raise ValueError(f"need {self.k} shards, got {len(shards)}")
+        if _native is not None and _native.available():
+            out = _native.rs16_reconstruct(shards, self.k, self.n)
+            if out is not None:
+                return out
         idxs = sorted(shards)[: self.k]
         sub = self.matrix[idxs]
         dec = gf16_mat_inv(sub)

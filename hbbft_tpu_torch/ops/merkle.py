@@ -4,7 +4,7 @@ Reference: upstream ``src/broadcast/merkle.rs`` (``MerkleTree``, ``Proof``
 over ``tiny-keccak`` SHA3-256) — SURVEY.md §2 #4.  Domain-separated leaf
 vs branch hashing prevents proof-length forgeries.
 
-Copy of ``hbbft_tpu/ops/merkle.py`` without its native C++ fast path.
+Copy of ``hbbft_tpu/ops/merkle.py``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,11 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
+
+try:
+    from hbbft_tpu_torch.ops import native as _native
+except Exception:  # pragma: no cover - native plane is optional
+    _native = None
 
 
 def _h_leaf(data: bytes) -> bytes:
@@ -82,6 +87,16 @@ class MerkleTree:
         assert leaves, "empty tree"
         self.leaves = list(leaves)
         n = len(self.leaves)
+        leaf_len = len(self.leaves[0])
+        if (
+            _native is not None
+            and _native.available()
+            and all(len(v) == leaf_len for v in self.leaves)
+        ):
+            # Native C++ fast path (equal-length leaves, the Broadcast
+            # shard case); bit-identical to the fallback below.
+            self.levels = _native.merkle_levels(self.leaves)
+            return
         size = 1 << _depth(n)
         level = [_h_leaf(v) for v in self.leaves]
         level += [_h_leaf(b"")] * (size - n)

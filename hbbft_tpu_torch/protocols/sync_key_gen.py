@@ -31,11 +31,10 @@ committed batches, SURVEY.md §3.3), so every node processes the same
 messages in the same order.  SyncKeyGen itself is a plain
 message-in/outcome-out state machine with no Step/Target plumbing.
 
-Copy of ``hbbft_tpu/protocols/sync_key_gen.py`` with its pure-Python
-branches only: the reference's native scalar-suite DKG engine (registered
-commitments, one-call ack and row checks, batch pre-digest of a committed
-batch) is left out, so every check here is the reference's pure path,
-which its own tests pin equal to the native one.
+Copy of ``hbbft_tpu/protocols/sync_key_gen.py``, with its native
+scalar-suite DKG (registered commitments, one-call ack and row checks,
+batch pre-digest of a committed batch) over
+:mod:`hbbft_tpu_torch.native_engine`.
 """
 
 from __future__ import annotations
@@ -48,6 +47,7 @@ from hbbft_tpu_torch.crypto.keys import (
     PublicKey,
     SecretKey,
     SecretKeyShare,
+    dkg_batch_enabled,
 )
 from hbbft_tpu_torch.crypto.poly import BivarCommitment, BivarPoly, Commitment, Poly, interpolate
 from hbbft_tpu_torch.crypto.suite import Suite
@@ -59,6 +59,277 @@ FAULT_UNKNOWN_SENDER = "sync_key_gen:unknown-sender"
 FAULT_ACK_BEFORE_PART = "sync_key_gen:ack-without-part"
 
 _SCALAR_BYTES = 32  # BLS12-381 r fits in 255 bits
+
+
+class _NativeDkg:
+    """Scalar-suite fast path for the DKG's N^3 private checks.
+
+    The committed-ack value check (KEM decrypt + commitment row eval +
+    compare) and the ack-row construction (poly evals + N encrypts) are
+    the measured Python tail of an era change (BASELINE.md round-4/5).
+    native/engine.cpp exposes them as single C calls over a registered
+    commitment matrix; semantics are byte-identical to the pure path
+    (same KEM, same Horner, same fault outcomes — the native engine
+    equivalence suites pin this end to end), and ANY mismatch in shape,
+    suite, or registry routing falls back to the pure-Python path.
+    """
+
+    def __init__(self, lib: Any, suite: Suite) -> None:
+        import ctypes
+
+        self._ctypes = ctypes
+        self._lib = lib
+        self._suite = suite
+        self._g = suite.g1_generator().to_bytes()
+        self._r = suite.scalar_modulus.to_bytes(_SCALAR_BYTES, "big")
+        from hbbft_tpu_torch.crypto.keys import _scalar_kem
+
+        self.kem = _scalar_kem(suite)
+
+    def commit_id(self, commitment: Any) -> int:
+        """Register (once, memoized on the shared decoded object)."""
+        cached = commitment.__dict__.get("_native_cid")
+        if cached is not None:
+            return cached
+        try:
+            flat = b"".join(
+                e.value.to_bytes(_SCALAR_BYTES, "big")
+                for row in commitment.elems
+                for e in row
+            )
+            cid = int(
+                self._lib.hbe_dkg_register(
+                    flat, len(commitment.elems), self._g, self._r
+                )
+            )
+        except Exception:
+            cid = -1
+        object.__setattr__(commitment, "_native_cid", cid)
+        return cid
+
+    def refresh_commit_id(self, commitment: Any) -> int:
+        """Drop a STALE memoized cid and re-register once (ADVICE round
+        5): after a registry generation bump (byte-cap clear) every
+        still-live commitment's memo returns -1 from the checks forever
+        — correct but permanently stranded on the slow path.  Called on
+        an rc == -1 from ack/row checks; the caller retries once with
+        the fresh cid and falls back if that one misses too."""
+        commitment.__dict__.pop("_native_cid", None)
+        return self.commit_id(commitment)
+
+    def ack_check(
+        self, cid: int, sender_pos: int, our_pos: int, ct: Any, sk_x: int
+    ) -> Tuple[int, int]:
+        """(rc, value): rc 1 ok, 2 bad value, 0 bad ciphertext, -1 fall
+        back."""
+        out = (self._ctypes.c_uint8 * _SCALAR_BYTES)()
+        rc = int(
+            self._lib.hbe_dkg_ack_check(
+                cid, sender_pos, our_pos,
+                ct.u.value.to_bytes(_SCALAR_BYTES, "big"), ct.v,
+                ct.w.value.to_bytes(_SCALAR_BYTES, "big"),
+                sk_x.to_bytes(_SCALAR_BYTES, "big"), out,
+            )
+        )
+        return rc, int.from_bytes(bytes(out), "big")
+
+    def row_check(self, cid: int, our_pos: int, plain: bytes, n1: int) -> int:
+        return int(self._lib.hbe_dkg_row_check(cid, our_pos, plain, n1))
+
+    def ack_check_batch(
+        self, items: list, our_pos: int, sk_x: int
+    ) -> Optional[list]:
+        """One C call for a whole batch's ack checks.
+
+        ``items``: ``(cid, sender_pos, ct)`` triples; returns a matching
+        ``[(rc, value)]`` list with per-item rc identical to
+        :meth:`ack_check`, or None when the native call itself is
+        unusable (caller falls back per item)."""
+        ctypes = self._ctypes
+        n = len(items)
+        cids = (ctypes.c_int64 * n)(*[c for c, _, _ in items])
+        spos = (ctypes.c_int32 * n)(*[s for _, s, _ in items])
+        u = b"".join(
+            ct.u.value.to_bytes(_SCALAR_BYTES, "big") for _, _, ct in items
+        )
+        v = b"".join(ct.v for _, _, ct in items)
+        w = b"".join(
+            ct.w.value.to_bytes(_SCALAR_BYTES, "big") for _, _, ct in items
+        )
+        rcs = (ctypes.c_int32 * n)()
+        vals = (ctypes.c_uint8 * (_SCALAR_BYTES * n))()
+        ok = int(
+            self._lib.hbe_dkg_ack_check_batch(
+                cids, spos, n, our_pos, u, v, w,
+                sk_x.to_bytes(_SCALAR_BYTES, "big"), rcs, vals,
+            )
+        )
+        if not ok:
+            return None
+        vb = bytes(vals)
+        return [
+            (
+                int(rcs[i]),
+                int.from_bytes(
+                    vb[_SCALAR_BYTES * i : _SCALAR_BYTES * (i + 1)], "big"
+                ),
+            )
+            for i in range(n)
+        ]
+
+    def part_check_batch(
+        self, items: list, our_pos: int, n1: int, sk_x: int
+    ) -> Optional[list]:
+        """One C call for a batch of Part row checks (decrypt our row +
+        decode + commitment consistency).  ``items``: ``(cid, ct)``
+        pairs whose ``ct.v`` is exactly ``n1 * 32`` bytes; returns
+        ``[(rc, row_plain_bytes)]`` (rc 1 ok / 2 fault / 0 bad ct /
+        -1 fall back), or None."""
+        ctypes = self._ctypes
+        n = len(items)
+        vlen = n1 * _SCALAR_BYTES
+        cids = (ctypes.c_int64 * n)(*[c for c, _ in items])
+        u = b"".join(
+            ct.u.value.to_bytes(_SCALAR_BYTES, "big") for _, ct in items
+        )
+        v = b"".join(ct.v for _, ct in items)
+        w = b"".join(
+            ct.w.value.to_bytes(_SCALAR_BYTES, "big") for _, ct in items
+        )
+        rcs = (ctypes.c_int32 * n)()
+        rows = (ctypes.c_uint8 * (vlen * n))()
+        ok = int(
+            self._lib.hbe_dkg_part_check_batch(
+                cids, n, our_pos, u, v, w, n1,
+                sk_x.to_bytes(_SCALAR_BYTES, "big"), rcs, rows,
+            )
+        )
+        if not ok:
+            return None
+        rb = bytes(rows)
+        return [
+            (int(rcs[i]), rb[vlen * i : vlen * (i + 1)]) for i in range(n)
+        ]
+
+    def interp_sum(self, groups: list) -> Optional[int]:
+        """sum over groups of interpolate_at_0(points) mod r in one C
+        call (the vectorized Lagrange entry; mirrors poly.interpolate).
+        ``groups``: lists of ``(x, y)`` int points.  None = fall back."""
+        ctypes = self._ctypes
+        xs: list = []
+        ys: list = []
+        counts: list = []
+        for pts in groups:
+            counts.append(len(pts))
+            for x, y in pts:
+                xs.append(x)
+                ys.append(y)
+        # c_int32 arrays TRUNCATE oversized ints silently (no
+        # OverflowError) — bound explicitly so a huge x falls back to
+        # the Python oracle instead of interpolating at a wrong point.
+        if any(
+            isinstance(x, bool) or not isinstance(x, int)
+            or x <= 0 or x >= (1 << 31)
+            for x in xs
+        ):
+            return None
+        xs_arr = (ctypes.c_int32 * len(xs))(*xs)
+        counts_arr = (ctypes.c_int32 * len(counts))(*counts)
+        ys_b = b"".join(y.to_bytes(_SCALAR_BYTES, "big") for y in ys)
+        out = (ctypes.c_uint8 * _SCALAR_BYTES)()
+        ok = int(
+            self._lib.hbe_scalar_interp_sum(
+                xs_arr, ys_b, counts_arr, len(counts), self._r, out
+            )
+        )
+        if not ok:
+            return None
+        return int.from_bytes(bytes(out), "big")
+
+    def ack_values(
+        self, row: "Poly", pub_keys_g1: list, rng: Any
+    ) -> Tuple["Ciphertext", ...]:
+        """The ack's encrypted row evaluations, batched: one C call for
+        the N poly evals and one for the N KEM encrypts.  The rng draws
+        happen HERE in the exact per-encrypt order of the pure path
+        (PublicKey.encrypt draws randrange(1, r) once per call), so the
+        consumption stream — and every equivalence test — is unchanged.
+        """
+        ctypes = self._ctypes
+        n = len(pub_keys_g1)
+        mod = self._suite.scalar_modulus
+        coeffs = b"".join(
+            c.to_bytes(_SCALAR_BYTES, "big") for c in row.coeffs
+        )
+        evals = (ctypes.c_uint8 * (_SCALAR_BYTES * n))()
+        self._lib.hbe_dkg_row_evals(coeffs, len(row.coeffs), n, evals)
+        rs = b"".join(
+            rng.randrange(1, mod).to_bytes(_SCALAR_BYTES, "big")
+            for _ in range(n)
+        )
+        pks = b"".join(
+            g.value.to_bytes(_SCALAR_BYTES, "big") for g in pub_keys_g1
+        )
+        out_u = (ctypes.c_uint8 * (_SCALAR_BYTES * n))()
+        out_v = (ctypes.c_uint8 * (_SCALAR_BYTES * n))()
+        out_w = (ctypes.c_uint8 * (_SCALAR_BYTES * n))()
+        self._lib.hbe_kem_encrypt_batch(
+            pks, bytes(evals), n, rs, out_u, out_v, out_w
+        )
+        from hbbft_tpu_torch.crypto.keys import scalar_ct_serde
+
+        g_type = type(self._suite.g1_generator())
+        u_b, v_b, w_b = bytes(out_u), bytes(out_v), bytes(out_w)
+        cts = []
+        for j in range(n):
+            s = slice(_SCALAR_BYTES * j, _SCALAR_BYTES * (j + 1))
+            ct = Ciphertext(
+                g_type(int.from_bytes(u_b[s], "big"), mod),
+                v_b[s],
+                g_type(int.from_bytes(w_b[s], "big"), mod),
+                self._suite,
+            )
+            object.__setattr__(ct, "_verify_ok", True)
+            object.__setattr__(
+                ct, "_serde_cache", scalar_ct_serde(u_b[s], v_b[s], w_b[s])
+            )
+            cts.append(ct)
+        return tuple(cts)
+
+
+_NATIVE_DKG: dict = {}
+
+# Batch-digest observation counters (tests/benchmarks only; protocol
+# logic NEVER reads these).  "items" = entries pre-digested, "hits" =
+# entries consumed by handle_ack/_decrypt_row.
+PREDIGEST_STATS = {"items": 0, "hits": 0}
+
+
+# Kill switch for the round-6 batch-digest fast paths (predigest,
+# vectorized generate/combine) — HBBFT_TORCH_DKG_BATCH=0 restores the
+# per-item round-5 behavior for back-to-back A/B measurement.  Single
+# definition in crypto.keys so the combines and the digest can never
+# disagree about the switch.
+_batch_dkg_enabled = dkg_batch_enabled
+
+
+def _native_dkg(suite: Suite) -> Optional[_NativeDkg]:
+    if suite.name != "scalar-insecure":
+        return None
+    nd = _NATIVE_DKG.get(suite.name, False)
+    if nd is not False:
+        return nd
+    try:
+        from hbbft_tpu_torch import native_engine
+
+        lib = native_engine.get_lib()
+        nd = _NativeDkg(lib, suite) if lib is not None else None
+        if nd is not None and nd.kem is None:
+            nd = None
+    except Exception:
+        nd = None
+    _NATIVE_DKG[suite.name] = nd
+    return nd
 
 
 def _encode_scalars(vals: Tuple[int, ...]) -> bytes:
@@ -159,6 +430,12 @@ class SyncKeyGen:
         self._ids: List[Any] = sorted(pub_keys)
         self._index = {n: i for i, n in enumerate(self._ids)}
         self.proposals: Dict[Any, _ProposalState] = {}
+        # Batch-digested native check results, keyed by message object
+        # identity (see predigest_batch); populated by the engine's
+        # batch callback for the duration of ONE committed batch and
+        # consumed by handle_part/handle_ack — empty in every other
+        # driving mode, so the per-item paths are untouched.
+        self._predigest: Dict[tuple, tuple] = {}
 
     # -- construction --------------------------------------------------
     @staticmethod
@@ -199,6 +476,142 @@ class SyncKeyGen:
         """Enough complete proposals to generate the joint key."""
         return self.count_complete() > self.threshold
 
+    # -- batch digest (native fast path) -------------------------------
+    #
+    # The engine's batch callback hands a whole committed batch of
+    # key-gen messages to Python at once; the per-message native checks
+    # (one C call per ack/part) were the measured 16M-cycle continuation
+    # tail at era changes (CLAUDE.md round-5 envelope profile).  These
+    # two methods batch ALL of a committed batch's private checks into
+    # one C call per kind; handle_part/handle_ack then consume the
+    # stored verdicts instead of re-deriving them.  Everything here is a
+    # pure function of message bytes + our secret key — pre-computing
+    # results for messages that later fail the public checks changes
+    # nothing (the results are simply never consumed), so outputs stay
+    # byte-identical by construction.  Any per-item native miss (stale
+    # cid, shape mismatch, oversized slot) leaves no entry and the
+    # consumer falls back to the existing per-item path, pure-Python
+    # oracle last.
+
+    def predigest_batch(self, msgs: Any) -> None:
+        """Batch the private DKG checks for ``(sender, payload)`` pairs
+        of one committed batch (payloads: Part | Ack, in batch order).
+
+        The admission loop runs ~N^2 times per DKG batch per node, so it
+        is written hot: locals pinned, the scalar-ciphertext type checks
+        inlined (same predicates as ``_ScalarKem.ct_ok`` + the slot
+        length), and any unexpected shape aborts the WHOLE digest via
+        the enclosing try — the per-item paths then re-derive every
+        verdict, so a Byzantine oddball costs speed, never correctness.
+        """
+        nd = _native_dkg(self.suite)
+        our_idx = self.our_index
+        if nd is None or our_idx is None or not _batch_dkg_enabled():
+            return
+        kem = nd.kem
+        g_type = kem._g_type
+        mod = kem._mod
+        suite = self.suite
+        index_get = self._index.get
+        proposals_get = self.proposals.get
+        predigest = self._predigest
+        commit_id = nd.commit_id
+        n1 = self.threshold + 1
+        part_vlen = n1 * _SCALAR_BYTES
+        ack_keys: List[tuple] = []
+        ack_items: List[tuple] = []
+        part_keys: List[tuple] = []
+        part_items: List[tuple] = []
+        try:
+            for sender, payload in msgs:
+                cls = payload.__class__
+                if cls is Ack:
+                    sender_idx = index_get(sender)
+                    if sender_idx is None:
+                        continue
+                    # A part for this proposer handled LATER in the same
+                    # batch is a digest miss; the per-item path covers it.
+                    state = proposals_get(payload.proposer)
+                    if state is None or sender_idx in state.acks:
+                        continue
+                    values = payload.values
+                    if type(values) is not tuple or len(values) <= our_idx:
+                        continue
+                    ct = values[our_idx]
+                    if type(ct) is not Ciphertext:
+                        continue
+                    u = ct.u
+                    w = ct.w
+                    v = ct.v
+                    if (
+                        type(u) is not g_type
+                        or type(w) is not g_type
+                        or type(v) is not bytes
+                        or len(v) != _SCALAR_BYTES
+                        or not 0 <= u.value < mod
+                        or not 0 <= w.value < mod
+                        or u.modulus != mod
+                        or w.modulus != mod
+                        or ct.suite != suite
+                    ):
+                        continue
+                    key = ("ack", id(payload), sender_idx)
+                    if key in predigest:
+                        continue
+                    cid = state.commitment.__dict__.get("_native_cid")
+                    if cid is None:
+                        cid = commit_id(state.commitment)
+                    if cid < 0:
+                        continue
+                    ack_keys.append((key, payload))
+                    ack_items.append((cid, sender_idx + 1, ct))
+                elif cls is Part:
+                    if index_get(sender) is None or sender in self.proposals:
+                        continue
+                    key = ("part", id(payload))
+                    if key in predigest:
+                        continue
+                    rows = payload.rows
+                    if type(rows) is not tuple or len(rows) <= our_idx:
+                        continue
+                    ct = rows[our_idx]
+                    if not (
+                        kem.ct_ok(ct) and len(ct.v) == part_vlen
+                    ):
+                        continue
+                    cid = commit_id(payload.commitment)
+                    if cid < 0:
+                        continue
+                    part_keys.append((key, payload))
+                    part_items.append((cid, ct))
+            sk_x = self.secret_key.x
+            stored = 0
+            if ack_items:
+                res = nd.ack_check_batch(ack_items, our_idx + 1, sk_x)
+                if res is not None:
+                    for (key, payload), rv in zip(ack_keys, res):
+                        if rv[0] >= 0:  # -1 (stale cid) = per-item miss
+                            predigest[key] = (payload, rv[0], rv[1])
+                            stored += 1
+            if part_items:
+                res = nd.part_check_batch(part_items, our_idx + 1, n1, sk_x)
+                if res is not None:
+                    for (key, payload), rv in zip(part_keys, res):
+                        if rv[0] >= 0:
+                            predigest[key] = (payload, rv[0], rv[1])
+                            stored += 1
+            PREDIGEST_STATS["items"] += stored
+        except Exception:
+            # Correctness never depends on the digest: drop everything
+            # and let the per-item paths run.
+            predigest.clear()
+
+    def clear_predigest(self) -> None:
+        """Drop all batch-digested results (end of the committed batch).
+        Consumers fall back to the per-item paths for anything still
+        unprocessed, so clearing is always safe."""
+        self._predigest.clear()
+
     # -- message handling ----------------------------------------------
     #
     # CRITICAL invariant: whether a Part is *accepted* and whether an Ack
@@ -232,6 +645,19 @@ class SyncKeyGen:
         row = self._decrypt_row(part, our_idx)
         if row is None:
             return PartOutcome(fault=FAULT_BAD_PART)
+        # Our ack: hand every node j one evaluation of its row.
+        nd = _native_dkg(self.suite)
+        if nd is not None:
+            mod = self.suite.scalar_modulus
+            pks_g1 = [getattr(self.pub_keys[n], "g1", None) for n in self._ids]
+            if all(
+                isinstance(getattr(g, "value", None), int)
+                and 0 <= g.value < mod
+                for g in pks_g1
+            ):
+                return PartOutcome(
+                    ack=Ack(sender, nd.ack_values(row, pks_g1, rng))
+                )
         values = tuple(
             self.pub_keys[n].encrypt(
                 _encode_scalars((row.eval(j + 1),)), rng
@@ -263,6 +689,51 @@ class SyncKeyGen:
         our_idx = self.our_index
         if our_idx is None:
             return AckOutcome()
+        # Native fast path: decrypt + decode + commitment consistency in
+        # one C call (identical verdicts; _NativeDkg docstring) — batch
+        # pre-digested where the engine's batch callback ran first.
+        nd = _native_dkg(self.suite)
+        ct = ack.values[our_idx]
+        if self._predigest:
+            pre = self._predigest.get(("ack", id(ack), sender_idx))
+            if pre is not None and pre[0] is ack:
+                PREDIGEST_STATS["hits"] += 1
+                rc, nval = pre[1], pre[2]
+                # Mirror SecretKey.decrypt's ciphertext-validity memo
+                # (rc 0 = invalid ct; 1/2 = valid ct).
+                object.__setattr__(ct, "_verify_ok", rc != 0)
+                if rc != 1:
+                    return AckOutcome(fault=FAULT_BAD_ACK)
+                state.values[sender_idx + 1] = nval
+                return AckOutcome()
+        if (
+            nd is not None
+            and nd.kem.ct_ok(ct)
+            and len(ct.v) == _SCALAR_BYTES
+        ):
+            cid = nd.commit_id(state.commitment)
+            if cid >= 0:
+                rc, nval = nd.ack_check(
+                    cid, sender_idx + 1, our_idx + 1, ct, self.secret_key.x
+                )
+                if rc < 0:
+                    # Stale cid (registry generation bump): clear the
+                    # memo and re-register once before giving up on the
+                    # fast path (ADVICE round 5).
+                    cid = nd.refresh_commit_id(state.commitment)
+                    if cid >= 0:
+                        rc, nval = nd.ack_check(
+                            cid, sender_idx + 1, our_idx + 1, ct,
+                            self.secret_key.x,
+                        )
+                if rc >= 0:
+                    # Mirror SecretKey.decrypt's ciphertext-validity memo
+                    # (rc 0 = invalid ct; 1/2 = valid ct).
+                    object.__setattr__(ct, "_verify_ok", rc != 0)
+                    if rc != 1:
+                        return AckOutcome(fault=FAULT_BAD_ACK)
+                    state.values[sender_idx + 1] = nval
+                    return AckOutcome()
         val = self._decrypt_value(ack, our_idx)
         if val is not None:
             # Private consistency: v must equal p_d(sender+1, our+1); check
@@ -314,9 +785,17 @@ class SyncKeyGen:
                     f"proposal {d!r} complete but only {len(pts)} values known"
                 )
             groups.append(pts)
-        secret = 0
-        for pts in groups:
-            secret = (secret + interpolate(pts, modulus)) % modulus
+        # Vectorized Lagrange (one C call sums every proposal's
+        # interpolation — same mod-r value as the loop below); any
+        # native miss falls back to the pure-Python oracle.
+        nd = _native_dkg(self.suite)
+        secret: Optional[int] = None
+        if nd is not None and _batch_dkg_enabled():
+            secret = nd.interp_sum(groups)
+        if secret is None:
+            secret = 0
+            for pts in groups:
+                secret = (secret + interpolate(pts, modulus)) % modulus
         return pk_set, SecretKeyShare(secret, self.suite)
 
     # -- internals -----------------------------------------------------
@@ -395,6 +874,26 @@ class SyncKeyGen:
             return False
 
     def _decrypt_row(self, part: Part, our_idx: int) -> Optional[Poly]:
+        # Batch-digested verdict (decrypt + decode + row consistency in
+        # the one-call batch check): same outcomes as the step-by-step
+        # path below, including the ct-validity memo.
+        pre = (
+            self._predigest.get(("part", id(part)))
+            if self._predigest
+            else None
+        )
+        if pre is not None and pre[0] is part:
+            PREDIGEST_STATS["hits"] += 1
+            rc, data = pre[1], pre[2]
+            object.__setattr__(part.rows[our_idx], "_verify_ok", rc != 0)
+            if rc != 1:
+                return None
+            coeffs = _decode_scalars(
+                data, self.threshold + 1, self.suite.scalar_modulus
+            )
+            if coeffs is None:  # defensive: the C check validated ranges
+                return None
+            return Poly(coeffs, self.suite.scalar_modulus)
         try:
             data = self.secret_key.decrypt(part.rows[our_idx])
         except Exception:
@@ -407,7 +906,25 @@ class SyncKeyGen:
         if coeffs is None:
             return None
         row = Poly(coeffs, self.suite.scalar_modulus)
-        # Validate the row against the public commitment.
+        # Validate the row against the public commitment (native fast
+        # path: per-coefficient g*c comparison against the registered
+        # commitment's row — same verdict as the to_bytes comparison).
+        nd = _native_dkg(self.suite)
+        if nd is not None:
+            cid = nd.commit_id(part.commitment)
+            if cid >= 0:
+                rc = nd.row_check(
+                    cid, our_idx + 1, data, self.threshold + 1
+                )
+                if rc < 0:
+                    # Stale cid: re-register once (ADVICE round 5).
+                    cid = nd.refresh_commit_id(part.commitment)
+                    if cid >= 0:
+                        rc = nd.row_check(
+                            cid, our_idx + 1, data, self.threshold + 1
+                        )
+                if rc >= 0:
+                    return row if rc == 1 else None
         committed = part.commitment.row(our_idx + 1)
         ours = row.commitment(self.suite)
         if committed.to_bytes() != ours.to_bytes():

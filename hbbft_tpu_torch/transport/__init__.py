@@ -4,13 +4,12 @@ Runs hbbft nodes over actual TCP connections instead of the in-process
 simulator: length-prefixed serde frames (:mod:`.framing`), a
 selectors-based per-node event loop with backpressure, reconnect and
 sendmsg vectored egress (:mod:`.transport`), and a thread-per-node
-cluster harness (:mod:`.cluster`).
+cluster harness (:mod:`.cluster`), engine-per-node cluster nodes
+(:mod:`.native_node`), a process-per-node runtime (:mod:`.proc_cluster`
+over :mod:`.cluster_worker`), and a deterministic byte-level fault
+injector (:mod:`.faults`).
 
-Copy of ``hbbft_tpu/transport/`` for Python nodes, with the
-deterministic byte-level fault injector (:mod:`.faults`).  The
-process-per-node runtime (``proc_cluster.py``, ``cluster_worker.py``) and
-the native node (``native_node.py``) wait for ROADMAP.md Queue 1's
-process-per-node and native-engine items.
+Copy of ``hbbft_tpu/transport/``.
 """
 
 from hbbft_tpu_torch.transport.cluster import ClusterNode, LocalCluster
@@ -39,11 +38,15 @@ from hbbft_tpu_torch.transport.framing import (
     msgb_body,
     validate_msgb,
 )
+from hbbft_tpu_torch.transport.native_node import NativeClusterNode
+from hbbft_tpu_torch.transport.proc_cluster import ProcCluster
 from hbbft_tpu_torch.transport.transport import PeerStats, TcpTransport
 
 __all__ = [
     "ClusterNode",
     "LocalCluster",
+    "NativeClusterNode",
+    "ProcCluster",
     "FaultInjector",
     "FaultStats",
     "LinkFaults",

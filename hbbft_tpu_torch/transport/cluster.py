@@ -22,7 +22,7 @@ Keys are dealt exactly like :class:`~hbbft_tpu_torch.net.virtual_net.
 NetBuilder` (same rng ritual at the same seed), so a TCP cluster at
 seed s agrees batch-for-batch with a VirtualNet run at seed s modulo
 scheduling; more importantly, a *subprocess* worker
-(the reference's ``transport/cluster_worker.py``) can derive its own keys
+(:mod:`hbbft_tpu_torch.transport.cluster_worker`) can derive its own keys
 from ``(seed, n, f)`` alone — no key material ever crosses a process
 boundary.
 
@@ -41,12 +41,11 @@ Untrusted-input policy at this layer: a frame whose payload fails
 (``cluster.bad_payload``) and dropped — framing-level violations
 already cost the sender its connection inside the transport.
 
-Copy of ``hbbft_tpu/transport/cluster.py`` for Python nodes, with the
-reference's live Byzantine nodes (``byzantine=``, :mod:`hbbft_tpu_torch.
-chaos`) and scrape server (:meth:`LocalCluster.serve_obs`).  The
-reference's engine-per-node arm, ``node_impl="native"``, waits for the
-native engine and raises a ``ValueError`` naming its ``ROADMAP.md`` item
-(Queue 1 item 4).  Where the caller names no backend, a BLS cluster
+Copy of ``hbbft_tpu/transport/cluster.py``: Python nodes, engine-per-node
+nodes (``node_impl="native"``, :mod:`hbbft_tpu_torch.transport.
+native_node`) or a mix, the reference's live Byzantine nodes
+(``byzantine=``, :mod:`hbbft_tpu_torch.chaos`) and scrape server
+(:meth:`LocalCluster.serve_obs`).  Where the caller names no backend, a BLS cluster
 verifies on the card (``TorchBackend``, in each node, the in-process
 service or the service process), which raises with no card; the
 reference used the host's ``BatchedBackend``.  The scalar suite, which
@@ -142,7 +141,7 @@ def merge_node_metrics(
     committed gauges, the ring-derived ``summaries`` — ``phase.*`` +
     ``ba.rounds``) — the shared half of
     :meth:`LocalCluster.merged_metrics`, factored out so the
-    process-per-node worker (the reference's ``transport/cluster_worker.py``)
+    process-per-node worker (:mod:`~hbbft_tpu_torch.transport.cluster_worker`)
     exports the same metric families for ONE node that a cluster dump
     carries for N, and the parent-side merge stays a plain counter sum."""
     m = Metrics()
@@ -483,22 +482,33 @@ class LocalCluster:
         # invalidates, so end-of-run reads are exact).
         self._phase_cache: Optional[Tuple[float, Dict[str, Any]]] = None
         self._obs_server: Any = None
-        # node_impl: "python" (ClusterNode above), or a {node_id: impl}
-        # mapping.  The reference's "native" arm (an engine per node)
-        # comes with the native engine.
+        # node_impl (round 9): "python" (the oracle ClusterNode above),
+        # "native" (engine-per-node NativeClusterNode — the whole
+        # decode+handle loop in C), or a {node_id: impl} mapping for
+        # mixed clusters (interop tests).  Native nodes run the stock
+        # SenderQueue(QHB) semantics natively, so they only compose with
+        # the DEFAULT protocol stack and the scalar suite.
         self._node_impl = node_impl
         self._batch_size = batch_size
         self._session_id = session_id
         for i in range(n):
             impl = self._impl_for(i)
-            if impl == "native":
+            if impl not in ("python", "native"):
                 raise ValueError(
-                    "node_impl='native' needs the native engine "
-                    "(hbbft_tpu/transport/native_node.py), not ported yet: "
-                    "ROADMAP.md Queue 1 item 4"
+                    f"unknown node_impl {impl!r} (python or native)"
                 )
-            if impl != "python":
-                raise ValueError(f"unknown node_impl {impl!r} (python)")
+        if any(self._impl_for(i) == "native" for i in range(n)):
+            if protocol_factory is not None:
+                raise ValueError(
+                    "node_impl='native' runs the stock SenderQueue(QHB) "
+                    "stack in the engine; custom protocol_factory needs "
+                    "node_impl='python'"
+                )
+            if not isinstance(self.suite, ScalarSuite):
+                raise ValueError(
+                    "node_impl='native' requires the scalar suite "
+                    "(the engine's internal-crypto mode)"
+                )
         factory = protocol_factory or _default_protocol_factory(
             batch_size, session_id, n
         )
@@ -615,7 +625,11 @@ class LocalCluster:
         # one that cannot start (the card's, with no card) raises here
         # and leaves nothing open.
         inline_backends = (
-            {i: self._backend_factory(self.suite) for i in range(n)}
+            {
+                i: self._backend_factory(self.suite)
+                for i in range(n)
+                if self._impl_for(i) == "python"
+            }
             if crypto == "inline"
             else {}
         )
@@ -686,23 +700,42 @@ class LocalCluster:
     ):
         netinfo = build_netinfo(self.n, self.f, self.seed, self.suite, i)
         t.tracer = self.traces[i]  # transport milestones share the ring
-        if backend is None:
-            backend = (
-                self._service_client(i, t)
-                if self.crypto in ("service", "service-proc")
-                else self._backend_factory(self.suite)
+        service = self.crypto in ("service", "service-proc")
+        if self._impl_for(i) == "native":
+            from hbbft_tpu_torch.transport.native_node import NativeClusterNode
+
+            # Inline, the engine checks the scalar suite's shares itself;
+            # with a service, they go to it as opaque requests.
+            node = NativeClusterNode(
+                node_id=i,
+                netinfo=netinfo,
+                all_ids=list(range(self.n)),
+                transport=t,
+                suite=self.suite,
+                seed=self.seed,
+                batch_size=self._batch_size,
+                session_id=self._session_id,
+                trace=self.traces[i],
+                crypto_backend=self._service_client(i, t) if service else None,
             )
-        node = ClusterNode(
-            node_id=i,
-            netinfo=netinfo,
-            all_ids=list(range(self.n)),
-            transport=t,
-            backend=backend,
-            suite=self.suite,
-            seed=self.seed,
-            protocol_factory=self._factory,
-            trace=self.traces[i],
-        )
+        else:
+            if backend is None:
+                backend = (
+                    self._service_client(i, t)
+                    if service
+                    else self._backend_factory(self.suite)
+                )
+            node = ClusterNode(
+                node_id=i,
+                netinfo=netinfo,
+                all_ids=list(range(self.n)),
+                transport=t,
+                backend=backend,
+                suite=self.suite,
+                seed=self.seed,
+                protocol_factory=self._factory,
+                trace=self.traces[i],
+            )
         spec = self.byzantine.get(i)
         if spec is not None:
             # restart() re-enters here, so a reborn Byzantine node gets

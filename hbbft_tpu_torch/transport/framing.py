@@ -115,8 +115,8 @@ def decode_ack(payload: bytes) -> int:
     return int.from_bytes(payload, "big")
 
 
-# MSGB body grammar (the reference's native engine emits and consumes
-# the identical layout):
+# MSGB body grammar (csrc/native/engine.cpp emits and consumes the
+# identical layout in hbe_node_egress_drain_msgb / hbe_node_ingest_wire):
 #
 #     body := count:u32  ( len:u32  bytes[len] ) * count
 #

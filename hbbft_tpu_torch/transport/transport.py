@@ -59,9 +59,11 @@ dropped, the fault is counted, and reconnect recovers.
 Copy of ``hbbft_tpu/transport/transport.py``.  The ``injector`` hook
 takes the port's :class:`~hbbft_tpu_torch.transport.faults.FaultInjector`
 (or anything with its ``start``/``on_send``).  The reference's environment A/B
-switches and its native-engine hooks are left out: vectored egress is
-on wherever ``socket.sendmsg`` exists, and coalescing is the
-``coalesce=`` constructor argument.
+switches are arguments here: vectored egress is on wherever
+``socket.sendmsg`` exists, and coalescing is the ``coalesce=``
+constructor argument.  The native-engine hooks (``on_wire_batch``,
+:meth:`TcpTransport.send_msgb`, :meth:`TcpTransport.send_wire`) are the
+reference's.
 """
 
 from __future__ import annotations
@@ -292,6 +294,9 @@ class TcpTransport:
         peers: Optional[Dict[Any, Tuple[str, int]]] = None,
         on_message: Optional[Callable[[Any, bytes], None]] = None,
         on_batch: Optional[Callable[[Any, List[bytes]], int]] = None,
+        on_wire_batch: Optional[
+            Callable[[Any, List[Tuple[int, bytes]]], int]
+        ] = None,
         host: str = "127.0.0.1",
         port: int = 0,
         max_frame_len: int = MAX_FRAME_LEN,
@@ -319,7 +324,16 @@ class TcpTransport:
         # consumer stopped at a prefix (inbox full): the connection is
         # dropped WITHOUT acking the remainder, exactly the per-frame
         # path's _ConsumerOverload semantics, and the peer's resume
-        # layer retransmits.  Precedence: on_batch > on_message.
+        # layer retransmits.  This is what lets a native-engine node
+        # move a whole RECV_CHUNK of frames per Python call.
+        # Wire-burst consumer (round 20): like ``on_batch`` but frames
+        # arrive in WIRE form — ``on_wire_batch(peer, records) ->
+        # frames consumed`` with each record ``(nmsg, data)``: nmsg ==
+        # 0 is a plain MSG payload, nmsg >= 1 a validated raw MSGB body
+        # (grammar-checked here, NOT sliced — the native engine walks
+        # the body in C, which is the whole point).  Precedence:
+        # on_wire_batch > on_batch > on_message.
+        self.on_wire_batch = on_wire_batch
         self.on_batch = on_batch
         self.max_frame_len = max_frame_len
         self.max_queue_frames = max_queue_frames
@@ -513,6 +527,71 @@ class TcpTransport:
             group_len += need
         close()
         return frames
+
+    def send_msgb(self, dest: Any, body: bytes, count: int) -> None:
+        """Frame + queue a pre-built MSGB body of ``count`` messages
+        toward ``dest``.  The native engine's egress drain emits bodies
+        already in the wire grammar (framing.py "msgb-grammar"), so the
+        hot path is ONE ``encode_frame`` per (peer, sweep) — no
+        per-message Python at all.  With coalescing off (or a
+        degenerate count) the body is unpacked and routed through
+        :meth:`send_many`, so ``coalesce`` governs the wire uniformly;
+        the chaos plane wraps this method to keep its per-message
+        egress seam (chaos/nodes.py)."""
+        if count <= 1 or not self.coalesce:
+            self.send_many([(dest, p) for p in decode_msgb(body)])
+            return
+        frame = encode_frame(KIND_MSGB, body, self.max_frame_len)
+        if self.injector is not None:
+            plan = self.injector.on_send(self.node_id, dest, frame)
+        else:
+            plan = ((0.0, frame),)
+        batch = []
+        for delay_s, data in plan:
+            wire = data if data != frame else None
+            batch.append((dest, delay_s, frame, wire))
+        self._post(("enqueue_many", batch))
+
+    def send_wire(
+        self, records: List[Tuple[Any, int, bytes]]
+    ) -> None:
+        """Frame + queue a whole egress sweep of pre-packed wire records
+        with ONE control-plane hand-off.  Each record is ``(dest, count,
+        data)``: a plain MSG payload when ``count <= 1``, else a
+        pre-built MSGB body of ``count`` messages (the native drain's
+        output shape — see :meth:`send_msgb`).  Emission order is
+        preserved end to end (one ``enqueue_many`` op), so per-dest
+        FIFO holds with no caller-side buffering; the drain's per-dest
+        grouping also keeps same-dest records adjacent, which the loop
+        thread's run-batching exploits.  With coalescing off, MSGB
+        records are unpacked and the whole sweep routes through
+        :meth:`send_many` — ``coalesce`` governs the wire uniformly.
+        The chaos plane wraps this method alongside send/send_many/
+        send_msgb (chaos/nodes.py)."""
+        if not self.coalesce:
+            flat: List[Tuple[Any, bytes]] = []
+            for dest, count, data in records:
+                if count <= 1:
+                    flat.append((dest, data))
+                else:
+                    flat.extend((dest, p) for p in decode_msgb(data))
+            if flat:
+                self.send_many(flat)
+            return
+        limit = self.max_frame_len
+        batch: List[Tuple[Any, float, bytes, Optional[bytes]]] = []
+        for dest, count, data in records:
+            kind = KIND_MSG if count <= 1 else KIND_MSGB
+            frame = encode_frame(kind, data, limit)
+            if self.injector is not None:
+                plan = self.injector.on_send(self.node_id, dest, frame)
+            else:
+                plan = ((0.0, frame),)
+            for delay_s, d in plan:
+                wire = d if d != frame else None
+                batch.append((dest, delay_s, frame, wire))
+        if batch:
+            self._post(("enqueue_many", batch))
 
     def _post(self, item: Tuple[str, Any]) -> None:
         self._control.append(item)
@@ -1057,7 +1136,8 @@ class TcpTransport:
             conn.decoder.feed(data)
             burst: List[bytes] = []
             burst_frames: List[int] = []  # msgs per batched frame, in order
-            batching = self.on_batch is not None
+            wire_burst: List[Tuple[int, bytes]] = []
+            batching = self.on_batch is not None or self.on_wire_batch is not None
             # Parse + dispatch one frame at a time (NOT decoder.frames(),
             # which would collect the whole burst before any dispatch):
             # a violation mid-burst must not void the frames before it —
@@ -1078,21 +1158,26 @@ class TcpTransport:
                     # Batch path: queue the read burst's MSG/MSGB frames
                     # for ONE consumer call.  MSGB bodies are grammar-
                     # checked HERE (validate_msgb raises FrameError →
-                    # the uniform drop/strike/ban response).  Kind
-                    # violations in the same burst still raise below;
-                    # frames batched before the violation are simply
-                    # never consumed or acked (the resume layer covers
-                    # them).
-                    if kind == KIND_MSG:
+                    # the uniform drop/strike/ban response, identical on
+                    # both node impls) but only the wire path skips the
+                    # slicing.  Kind violations in the same burst still
+                    # raise below; frames batched before the violation
+                    # are simply never consumed or acked (the resume
+                    # layer covers them).
+                    nmsg = 0 if kind == KIND_MSG else validate_msgb(payload)
+                    if self.on_wire_batch is not None:
+                        wire_burst.append((nmsg, payload))
+                    elif kind == KIND_MSG:
                         burst.append(payload)
                         burst_frames.append(1)
                     else:
-                        nmsg = validate_msgb(payload)
                         burst.extend(decode_msgb(payload))
                         burst_frames.append(nmsg)
                     continue
                 self._handle_frame(conn, kind, payload)
-            if burst:
+            if wire_burst:
+                self._dispatch_wire_burst(conn, wire_burst)
+            elif burst:
                 self._dispatch_burst(conn, burst, burst_frames)
         except FrameError as exc:
             if isinstance(exc, _BanReject):
@@ -1276,6 +1361,27 @@ class TcpTransport:
             frames_done += 1
         self._rx_counts[conn.peer_id] += frames_done
         if consumed < len(burst):
+            raise _ConsumerOverload()
+
+    def _dispatch_wire_burst(
+        self, conn: _Inbound, records: List[Tuple[int, bytes]]
+    ) -> None:
+        """Hand one read burst's frames to ``on_wire_batch`` in wire
+        form — ``(nmsg, data)`` per frame, nmsg == 0 a plain MSG
+        payload, nmsg >= 1 a validated raw MSGB body.  The return value
+        counts FRAMES consumed (all-or-nothing per frame by contract),
+        which is exactly the ack unit."""
+        st = self.peer_stats[conn.peer_id]
+        st.frames_in += len(records)
+        st.msgs_in += sum(n if n else 1 for n, _ in records)
+        try:
+            consumed = self.on_wire_batch(conn.peer_id, records)
+        except Exception:
+            self.metrics.count("transport.on_message_errors")
+            consumed = len(records)
+        consumed = max(0, min(int(consumed), len(records)))
+        self._rx_counts[conn.peer_id] += consumed
+        if consumed < len(records):
             raise _ConsumerOverload()
 
     def _flush_inbound(self, conn: _Inbound) -> None:

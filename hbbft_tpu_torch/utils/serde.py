@@ -28,17 +28,21 @@ Wire grammar (all integers big-endian):
     struct  := 0x10 nlen:u8 name[nlen] fields:tuple
     group   := 0x11 nlen:u8 suite[nlen] g:u8 len:u32 raw[len]
 
-Copy of ``hbbft_tpu/utils/serde.py`` without its native token-scan
-decode path and without the pre-rendered encoding memo that only native
-producers fill: the pure decoder below gives the same objects and raises
-the same :class:`DecodeError` exceptions, and ``dumps`` gives the same
-bytes.
+Copy of ``hbbft_tpu/utils/serde.py``.  Its native token scan runs only
+with an engine library this process has already loaded
+(:mod:`hbbft_tpu_torch.native_engine`); the pure decoder gives the same
+objects and raises the same :class:`DecodeError` exceptions.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Callable, Dict, Tuple, Type
 
+# mirror: serde-scan-limits — these two constants are passed verbatim
+#     to the native token scan (`_native_scan` below) and duplicated as
+#     literals at engine.cpp's own hbe_serde_scan call site; HBX001
+#     checks the values match, HBX003 keeps the anchors paired.
 MAX_DEPTH = 64
 _MAX_LEN = 1 << 28  # 256 MiB hard cap on any single length field
 
@@ -72,6 +76,11 @@ _T_GROUP = 0x11
 _STRUCTS: Dict[str, Tuple[Type, Callable[[Any], tuple], Callable[[tuple], Any]]] = {}
 _STRUCT_BY_CLS: Dict[Type, str] = {}
 
+# name -> token-level fast builder for the native-scan path (see
+# register_token_struct).  Purely an accelerator: absence or a None
+# return changes nothing.
+_TOKEN_STRUCTS: Dict[str, Callable] = {}
+
 # suite name -> suite instance (for group-element decoding)
 _SUITES: Dict[str, Any] = {}
 
@@ -93,6 +102,23 @@ def register_struct(
 
 def register_suite(suite: Any) -> None:
     _SUITES[suite.name] = suite
+
+
+def register_token_struct(name: str, fast: Callable) -> None:
+    """Register a token-level fast builder for struct ``name`` on the
+    native-scan decode path (hot committed types; wire.py registers one
+    for the scalar ``"ct"`` — DKG-epoch payloads carry ~N^2 of them).
+
+    ``fast(tokens, ti, data, suite_name)`` is called at the struct's
+    FIELDS node and must either return ``(obj, next_ti)`` — with ``obj``
+    EXACTLY what the generic ``_build`` + registered unpack would
+    construct and ``next_ti`` just past the fields subtree — or return
+    None for anything even slightly unusual (other suite, pin mismatch,
+    malformed shape), deferring to the generic path so the canonical
+    validation and DecodeError behavior apply.  The scan/pure
+    fuzz-equivalence tests (tests/test_serde.py) pin both properties.
+    """
+    _TOKEN_STRUCTS[name] = fast
 
 
 def get_suite(name: str) -> Any:
@@ -169,6 +195,21 @@ def _encode(obj: Any, out: bytearray, depth: int) -> None:
     else:
         name = _STRUCT_BY_CLS.get(type(obj))
         if name is not None:
+            # Pre-rendered encoding memo: producers that construct hot
+            # struct objects natively (the scalar KEM's DKG ciphertexts)
+            # attach the exact bytes this branch would emit — the memo
+            # is a pure function of the frozen fields, and producers pin
+            # byte-equality with this recursive path by test.
+            try:
+                cached = obj.__dict__.get("_serde_cache")
+            except AttributeError:
+                cached = None
+            # depth + 2: the memo'd struct subtree reaches two levels
+            # below this node (fields tuple -> leaf values); splicing it
+            # deeper would let dumps emit bytes loads rejects.
+            if cached is not None and depth + 2 <= MAX_DEPTH:
+                out += cached
+                return
             _, pack, _ = _STRUCTS[name]
             nraw = name.encode("utf-8")
             out.append(_T_STRUCT)
@@ -332,6 +373,17 @@ def loads(data: bytes, suite: Any = None) -> Any:
         raise DecodeError("not bytes")
     data = bytes(data)
     suite_name = None if suite is None else suite.name
+    # Native token scan (C does all byte-level structural validation in
+    # one pass; the Python builder below only constructs objects and
+    # applies the semantic checks).  Any unavailability falls back to
+    # the recursive pure-Python decoder — identical accept/reject
+    # behavior either way, pinned by tests/test_serde.py.
+    tokens = _native_scan(data)
+    if tokens is not None:
+        if tokens is _SCAN_MALFORMED:
+            raise DecodeError("malformed (native scan)")
+        obj, ti = _build(tokens, 0, data, suite_name, 0)
+        return obj
     r = _Reader(data, suite_name)
     obj = _decode(r, 0)
     if r.pos != len(r.data):
@@ -345,3 +397,143 @@ def try_loads(data: bytes, suite: Any = None) -> Any:
         return loads(data, suite=suite)
     except DecodeError:
         return None
+
+
+# ---------------------------------------------------------------------------
+# Native-scan decode path (C tokenizer in native/engine.cpp + this builder)
+# ---------------------------------------------------------------------------
+
+_SCAN_MALFORMED = object()
+# The engine library whose ``hbe_serde_scan`` decodes, set by
+# :mod:`hbbft_tpu_torch.native_engine` when it loads one (decoding never
+# triggers the engine's g++ build).  Any width works: the scan does not
+# depend on the NodeSet width.
+_NATIVE_SCAN_LIB: Any = None
+
+
+def use_native_scan(lib: Any) -> None:
+    """Decode through ``lib``'s token scan from now on (the first loaded
+    engine library; later ones are ignored)."""
+    global _NATIVE_SCAN_LIB
+    if _NATIVE_SCAN_LIB is None:
+        _NATIVE_SCAN_LIB = lib
+
+
+def _native_scan(data: bytes):
+    """Token triples from the C scanner, _SCAN_MALFORMED on structural
+    rejection, or None when no engine is loaded (fall back).
+    """
+    lib = _NATIVE_SCAN_LIB
+    if lib is None:
+        return None
+    n = len(data)
+    # Optimistic buffer: typical values cost >= 4 input bytes per token
+    # triple; pathological inputs (runs of 1-byte values) retry with the
+    # exact worst case (one triple per input byte, +1 for the root).
+    for triples in (n // 2 + 64, n + 2):
+        buf = (ctypes.c_int64 * (3 * triples))()
+        rc = int(
+            lib.hbe_serde_scan(data, n, buf, triples, MAX_DEPTH, _MAX_LEN)
+        )
+        if rc == -2:
+            continue
+        if rc < 0:
+            return _SCAN_MALFORMED
+        return buf
+    return _SCAN_MALFORMED  # unreachable: second buffer is worst-case
+
+
+def _build(t: Any, ti: int, data: bytes, suite_name: Any, depth: int):
+    """Construct the value at token index ``ti``; returns (value, next).
+
+    Semantic twin of ``_decode`` over the pre-validated token stream:
+    registries, utf-8, dict-key and unpack validation live here, byte
+    structure was validated by the scanner.
+    """
+    if depth > MAX_DEPTH:  # scanner enforces this too; belt-and-braces
+        raise DecodeError("nesting too deep")
+    base = 3 * ti
+    tag = t[base]
+    off = t[base + 1]
+    ln = t[base + 2]
+    ti += 1
+    if tag == _T_NONE:
+        return None, ti
+    if tag == _T_TRUE:
+        return True, ti
+    if tag == _T_FALSE:
+        return False, ti
+    low = tag & 0xFF
+    if low == _T_INT:
+        mag = int.from_bytes(data[off : off + ln], "big")
+        return (-mag if tag >> 8 else mag), ti
+    if tag == _T_BYTES:
+        return data[off : off + ln], ti
+    if tag == _T_STR:
+        try:
+            return data[off : off + ln].decode("utf-8"), ti
+        except UnicodeDecodeError as e:
+            raise DecodeError("bad utf-8") from e
+    if tag in (_T_TUPLE, _T_LIST):
+        items = []
+        for _ in range(off):  # off = count
+            v, ti = _build(t, ti, data, suite_name, depth + 1)
+            items.append(v)
+        return (tuple(items) if tag == _T_TUPLE else items), ti
+    if tag == _T_DICT:
+        d: Dict[Any, Any] = {}
+        for _ in range(off):
+            k, ti = _build(t, ti, data, suite_name, depth + 1)
+            v, ti = _build(t, ti, data, suite_name, depth + 1)
+            try:
+                if k in d:
+                    raise DecodeError("duplicate dict key")
+                d[k] = v
+            except TypeError as e:
+                raise DecodeError("unhashable dict key") from e
+        return d, ti
+    if tag == _T_STRUCT:
+        try:
+            name = data[off : off + ln].decode("utf-8")
+        except UnicodeDecodeError as e:
+            raise DecodeError("bad struct name") from e
+        entry = _STRUCTS.get(name)
+        if entry is None:
+            raise DecodeError(f"unknown struct {name!r}")
+        fast = _TOKEN_STRUCTS.get(name)
+        if fast is not None:
+            res = fast(t, ti, data, suite_name)
+            if res is not None:
+                return res
+        fields, ti = _build(t, ti, data, suite_name, depth + 1)
+        if not isinstance(fields, tuple):
+            raise DecodeError("struct fields must be a tuple")
+        try:
+            return entry[2](fields), ti
+        except DecodeError:
+            raise
+        except Exception as e:
+            raise DecodeError(f"invalid {name}: {e}") from e
+    if tag == _T_GROUP:
+        try:
+            sname = data[off : off + ln].decode("utf-8")
+        except UnicodeDecodeError as e:
+            raise DecodeError("bad suite name") from e
+        if suite_name is not None and sname != suite_name:
+            raise DecodeError(
+                f"suite {sname!r} not allowed (expected {suite_name!r})"
+            )
+        suite = get_suite(sname)
+        base = 3 * ti
+        group, poff, plen = t[base], t[base + 1], t[base + 2]
+        ti += 1
+        raw = data[poff : poff + plen]
+        try:
+            if group == 1:
+                return suite.g1_from_bytes(raw), ti
+            if group == 2:
+                return suite.g2_from_bytes(raw), ti
+        except ValueError as e:
+            raise DecodeError(str(e)) from e
+        raise DecodeError("bad group id")
+    raise DecodeError(f"unknown tag 0x{tag:02x}")

@@ -13,8 +13,10 @@
   corrupt-share node, each run on both packages: the oracle's verdicts
   and the set of accused ids equal the reference's.  Live socket runs
   are not byte-deterministic, so the comparison is at the set level.
-* ``impl="native"`` raises, naming the native engine's ``ROADMAP.md``
-  item.
+* ``impl="native"`` arms a native node as the reference arms it: the
+  corrupt-share sender through the engine's tamper hooks, every other
+  strategy at the transport's send surface (its live runs are in
+  ``tests/test_torch_native_chaos.py``).
 
 Tolerance: exact.
 """
@@ -139,17 +141,43 @@ def test_localcluster_validates_byzantine_like_the_reference(kwargs):
     assert str(got.value) == str(ref.value)
 
 
-def test_native_byzantine_arm_raises():
-    class Node:
-        id = 3
-        metrics = None
-        transport = None
+def _armed(pkg: str, name: str) -> dict:
+    """A native node of ``pkg`` armed with strategy ``name`` by
+    ``install_byzantine(impl="native")``, and a ``LocalCluster`` that
+    makes node 3 a native flooding node, as plain data."""
+    cluster = _cluster_mod(pkg)
+    chaos = _chaos(pkg)
+    suite = importlib.import_module(f"{pkg}.crypto.suite").ScalarSuite()
+    with cluster.LocalCluster(4, seed=0, node_impl="native") as c:
+        node = chaos.install_byzantine(
+            c.nodes[3], name, seed=0, suite=suite, cluster_id=c.cluster_id,
+            peer_addrs={j: a for j, a in c.addr_map.items() if j != 3}, impl="native")
+        t = node.transport
+        armed = dict(
+            node=type(node).__name__,
+            tamper_hooked=hasattr(node, "_chaos_tamper_cb"),
+            wrapped=sorted(k for k in ("send", "send_many", "send_msgb", "send_wire")
+                           if k in vars(t)),
+        )
+    with cluster.LocalCluster(4, seed=0, byzantine={3: "flood"}, node_impl={3: "native"}) as c:
+        armed["flood_node"] = type(c.nodes[3]).__name__
+        armed["flood_wrapped"] = sorted(k for k in ("send", "send_many", "send_msgb",
+                                                    "send_wire") if k in vars(c.nodes[3].transport))
+    return armed
 
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 4"):
-        install_byzantine(Node(), "corrupt-share", seed=0, suite=ScalarSuite(),
-                          cluster_id=b"x", peer_addrs={0: ("127.0.0.1", 1)}, impl="native")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 4"):
-        LocalCluster(4, byzantine={3: "flood"}, node_impl={3: "native"})
+
+def test_native_byzantine_arm_raises():
+    """The native arm the reference has, which raised here before the
+    native engine was ported: ``install_byzantine(impl="native")`` arms a
+    native node exactly as the reference's does (the corrupt-share
+    sender through the engine's tamper hooks, the other strategies at
+    the transport's send surface, ``send_msgb``/``send_wire`` included),
+    and ``LocalCluster`` builds a native Byzantine node."""
+    for name in ("corrupt-share", "flood"):
+        got = _armed("hbbft_tpu_torch", name)
+        assert got == _armed("hbbft_tpu", name)
+        assert got["node"] == got["flood_node"] == "NativeClusterNode"
+        assert got["tamper_hooked"] == (name == "corrupt-share")
     assert sorted(STRATEGIES) == sorted(ref_strategies.STRATEGIES)
 
 

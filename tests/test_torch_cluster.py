@@ -9,8 +9,10 @@ arrival times over live sockets, so a dissenting arm is re-run a bounded
 number of times, as ``tests/test_cryptoplane.py`` does: a wrong verdict
 diverges on every run and no rerun hides it.  The service arms route
 every share check through the shared service (flushes > 0) with no
-fallback.  What the port does not have yet (the native engine's node
-arm) raises, naming its ``ROADMAP.md`` item.
+fallback.  The native engine's node arm (all nodes native, a mixed
+cluster, a native Byzantine node), which raised here until the engine
+was ported (ROADMAP.md Queue 1 item 4), builds the reference's cluster
+and commits what it commits.
 """
 
 from __future__ import annotations
@@ -105,14 +107,59 @@ def test_keys_and_netinfo_match_the_reference():
             b.public_key(i).to_bytes() for i in range(4)]
 
 
+def _native_arm(pkg: str, kwargs: dict, rounds: int = 4, target: int = 2) -> dict:
+    """A presubmitted run of ``pkg``'s cluster built with ``kwargs``, as
+    plain data: each node's class, the honest nodes' streams (their first
+    ``target`` batches; one stream when they agree) and the ids they
+    accuse."""
+    cluster = importlib.import_module(f"{pkg}.transport.cluster")
+    qhb = importlib.import_module(f"{pkg}.protocols.queueing_honey_badger")
+    oracle = importlib.import_module(f"{pkg}.chaos.oracle")
+    dumps = ref_serde.dumps if pkg == "hbbft_tpu" else serde.dumps
+    honest = [i for i in range(4) if i not in kwargs.get("byzantine", {})]
+    c = cluster.LocalCluster(4, seed=0, **kwargs)
+    for k in range(rounds):
+        for i in honest:
+            c.submit(i, qhb.Input.user(f"tx-{k}-{i}"))
+    c.start()
+    try:
+        assert c.wait(lambda cl: all(len(cl.batches(i)) >= target for i in honest),
+                      EPOCH_TIMEOUT_S)
+        streams = {tuple((b.era, b.epoch, dumps(b.contributions))
+                         for b in c.batches(i)[:target]) for i in honest}
+        return dict(
+            impls=[type(c.nodes[i]).__name__ for i in range(4)],
+            stream=streams.pop() if len(streams) == 1 else None,
+            accused=sorted({s for i in honest for s, _ in oracle.fault_entries(c.nodes[i])}),
+            handler_errors=c.merged_metrics().counters.get("cluster.handler_errors", 0),
+        )
+    finally:
+        c.stop()
+
+
 @pytest.mark.parametrize("kwargs, item", [
     (dict(node_impl="native"), "Queue 1 item 4"),
     (dict(node_impl={0: "python", 1: "native"}), "Queue 1 item 4"),
     (dict(byzantine={3: "corrupt-share"}, node_impl={3: "native"}), "Queue 1 item 4"),
 ])
 def test_unported_arguments_raise(kwargs, item):
-    with pytest.raises(ValueError, match=item):
-        LocalCluster(4, seed=0, **kwargs)
+    """The arms that raised, naming ROADMAP.md ``item``, until the native
+    engine was ported: each now builds the reference's cluster (the same
+    node classes) and commits what the reference's commits, a dissenting
+    pair re-run at most 3 times.  A stream with a corrupt-share node in it
+    is compared as the accused ids (only node 3) and the honest nodes'
+    agreement, as tests/test_torch_chaos.py compares live Byzantine
+    runs."""
+    byzantine = "byzantine" in kwargs
+    for _attempt in range(3):
+        port, ref = (_native_arm(pkg, kwargs) for pkg in ("hbbft_tpu_torch", "hbbft_tpu"))
+        if byzantine:
+            port["stream"] = ref["stream"] = port["stream"] is not None
+        if port == ref:
+            break
+    assert port == ref
+    assert "NativeClusterNode" in port["impls"] and port["handler_errors"] == 0
+    assert port["stream"] and port["accused"] == ([3] if byzantine else [])
 
 
 def test_serve_obs_raises():

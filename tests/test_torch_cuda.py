@@ -482,3 +482,55 @@ def test_corrupt_share_cluster_on_card_matches_host(cuda):
         reqs, out = flushes[k]
         assert host.verify_batch(reqs) == out
     assert all(build.LAUNCHES[k] >= len(flushes) for k in dpair.KERNELS)
+
+
+def _native_bls_run(backend, suite):
+    """The BLS engine at N = 4, seed 1, one epoch (the reference's
+    ``test_native_ext_crypto.py`` run), deferred flushes; returns the run
+    as plain data."""
+    from hbbft_tpu_torch.native_engine import NativeQhbNet
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input
+    from hbbft_tpu_torch.utils import serde
+
+    nat = NativeQhbNet(4, seed=1, batch_size=8, num_faulty=1, session_id=b"qhb-test",
+                       suite=suite, backend=backend, flush_every=0)
+    for k in range(2):
+        for nid in range(3):
+            nat.send_input(nid, Input.user(f"tx-{nid}-{k}"))
+    nat.run_until(lambda e: all(len(e.nodes[i].outputs) >= 1 for i in e.correct_ids),
+                  chunk=200)
+    out = dict(
+        batches={i: [(b.era, b.epoch, serde.dumps(b.contributions))
+                     for b in nat.nodes[i].outputs] for i in nat.correct_ids},
+        faults={i: nat.faults(i) for i in range(4)},
+        delivered=nat.delivered,
+        flush_stats=dict(nat.flush_stats),
+    )
+    nat.close()
+    return out
+
+
+def test_native_bls_engine_on_card_matches_host_backend(cuda):
+    """The native engine's external-crypto flush over ``TorchBackend`` on
+    the card (``chip_smoke.py`` phase 8 at N = 4): the same batches,
+    faults, deliveries and flush counts as over the host
+    ``BatchedBackend``, and the scan and pair kernels launched on every
+    flush the card answered."""
+    suite = BLSSuite()
+    backend = TorchBackend(suite, device=cuda)
+    backend.load_kernels()
+    flushes = []
+    card_verify = backend.verify_batch
+
+    def counted(reqs):
+        flushes.append(len(reqs))
+        return card_verify(reqs)
+
+    backend.verify_batch = counted
+    build.reset_launches()
+    card = _native_bls_run(backend, suite)
+    host = _native_bls_run(BatchedBackend(suite), suite)
+    assert card == host
+    assert all(not f for fs in card["faults"].values() for f in fs)
+    assert flushes and all(build.LAUNCHES[k] >= len(flushes) for k in dpair.KERNELS)
+    assert all(build.LAUNCHES[k] >= len(flushes) for k in dscan.KERNELS)

@@ -292,3 +292,58 @@ def test_dynamic_stack_module_imports_first(mod):
                "print('TAGS', len(serde._STRUCTS))\n")
     assert res.returncode == 0, res.stderr
     assert "TAGS 35" in res.stdout, res.stdout
+
+
+def test_native_engine_and_process_runtime_modules_are_checked_above():
+    """The native engine's modules, its cluster node and the
+    process-per-node runtime are among those the fresh interpreter above
+    imports, so none of them loads ``jax`` or the JAX package."""
+    mods = set(_port_modules())
+    want = {
+        "hbbft_tpu_torch.native_engine", "hbbft_tpu_torch.ops.native",
+        "hbbft_tpu_torch.transport.native_node",
+        "hbbft_tpu_torch.transport.cluster_worker",
+        "hbbft_tpu_torch.transport.proc_cluster",
+    }
+    assert want <= mods, sorted(want - mods)
+
+
+@pytest.mark.parametrize("mod", [
+    "hbbft_tpu_torch.native_engine", "hbbft_tpu_torch.ops.native",
+    "hbbft_tpu_torch.transport.native_node", "hbbft_tpu_torch.transport.cluster_worker",
+    "hbbft_tpu_torch.transport.proc_cluster",
+])
+def test_native_module_imports_first(mod):
+    """Each module of the native engine and the process runtime is
+    importable as the first import of a fresh interpreter (no circular
+    import), and importing it builds nothing."""
+    res = _run(f"import {mod}\n"
+               "from hbbft_tpu_torch import native_engine\n"
+               "from hbbft_tpu_torch.ops import native\n"
+               "print('OK', native_engine._LIBS, native._LOADED)\n")
+    assert res.returncode == 0, res.stderr
+    assert "OK {} False" in res.stdout, res.stdout
+
+
+def test_native_engine_over_bls_refuses_without_a_card():
+    """``NativeQhbNet`` over BLS with no backend named verifies on the
+    card (``TorchBackend``), which raises with no card; a host backend
+    named by the caller runs."""
+    code = (
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from hbbft_tpu_torch.crypto.backend import BatchedBackend\n"
+        "from hbbft_tpu_torch.crypto.bls.suite import BLSSuite\n"
+        "from hbbft_tpu_torch.native_engine import NativeQhbNet\n"
+        "n = 0\n"
+        "try:\n"
+        "    NativeQhbNet(4, seed=1, suite=BLSSuite())\n"
+        "except RuntimeError:\n"
+        "    n += 1\n"
+        "suite = BLSSuite()\n"
+        "NativeQhbNet(4, seed=1, suite=suite, backend=BatchedBackend(suite)).close()\n"
+        "print('REFUSED', n)\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "REFUSED 1" in res.stdout, res.stdout
