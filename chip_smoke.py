@@ -106,7 +106,18 @@ Phases (any failure raises and the script exits nonzero):
    alike, no fault, the flush counts equal to the reference's at the
    same seed, the scan and pair kernels launched on every flush, the
    first 4 flushes held against the host ``BatchedBackend``, with the
-   epoch walls, the backend's stages and the device's busy share.
+   epoch walls, the backend's stages and the device's busy share;
+9. the sanitizer tier over the card: the engine built under UBSan and
+   under ASan (``build.build_host(..., sanitizer=...)``, beside phases
+   1-8), each driven in a child python with its runtime ``LD_PRELOAD``ed
+   (ASan with ``protect_shadow_gap=0``, which the CUDA driver needs):
+   ``NativeQhbNet(4, ...)`` over BLS with external crypto through
+   ``TorchBackend(device="cuda")`` for one committed epoch, its batches
+   equal to the normal engine's in this process, K2 and K3 launched on
+   every flush, then a ``TorchBackend`` whose second flush raises
+   ``DeviceFlushError``: the error reaches the caller, no fault is
+   recorded and later calls raise; each child exits 0 with no sanitizer
+   report.
 
 The last three lines are one JSON object with every kernel's numbers,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.  With no CUDA card, or
@@ -2419,6 +2430,210 @@ def phase_native(card: str) -> dict:
     return launches
 
 
+# Phase 9 (a): the sanitized engines over the card.  Each runs in a child
+# python with its runtime LD_PRELOADed (python itself is not instrumented).
+# ASan also needs protect_shadow_gap=0: the CUDA driver maps memory inside
+# the shadow gap, which ASan protects by default.  Without it a python
+# that only starts CUDA under ASan dies in ASan's __cxa_throw interceptor
+# ("CHECK failed: ... real___cxa_throw") (H100, CUDA 12.9, GCC 13's libasan).
+SANITIZED_ENV = {
+    "undefined": {},
+    "address": {"ASAN_OPTIONS": "protect_shadow_gap=0:detect_leaks=0"},
+}
+SANITIZER_REPORT = {"undefined": "runtime error", "address": "AddressSanitizer"}
+SANITIZED_BUILDS = ("undefined", "address")
+SANITIZED_CHILD_S = 600
+
+
+def build_sanitized_engines() -> float:
+    """Build the UBSan and ASan engines of width 4 (phase 9); returns the
+    seconds taken.  Runs in the host build pool beside phases 1-8."""
+    from hbbft_tpu_torch import build
+
+    t0 = time.perf_counter()
+    for sanitizer in SANITIZED_BUILDS:
+        build.build_host("engine", 4, sanitizer=sanitizer)
+    return time.perf_counter() - t0
+
+
+def _ext_net(backend):
+    """``NativeQhbNet(4, ...)`` over BLS with external crypto through
+    ``backend``, node 3 silent, every correct node given one transaction."""
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.native_engine import NativeQhbNet
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import Input
+
+    nat = NativeQhbNet(4, seed=9, batch_size=4, session_id=b"sanitized-card", suite=BLSSuite(),
+                       external_crypto=True, backend=backend, flush_every=0)
+    for i in nat.correct_ids:
+        nat.send_input(i, Input.user(f"tx-{i}".encode()))
+    return nat
+
+
+def _first_epoch(nat) -> list:
+    """Run ``nat`` until every correct node has a batch; returns the first
+    batches of the correct nodes."""
+    nat.run_until(lambda e: all(len(e.nodes[i].outputs) >= 1 for i in e.correct_ids),
+                  chunk=5000)
+    return [[(b.era, b.epoch, b.contributions) for b in nat.nodes[i].outputs[:1]]
+            for i in nat.correct_ids]
+
+
+def _card_epoch() -> dict:
+    """:func:`_first_epoch` of :func:`_ext_net` on ``TorchBackend(device="cuda")`` with each
+    flush's launches of the scan (K2) and pair (K3) kernels, the counts set
+    to 0 just before the run; then the abort leg: a ``TorchBackend`` whose
+    second flush raises ``DeviceFlushError`` stops the engine there, the
+    error reaches the caller, no fault is recorded and later calls raise."""
+    from hbbft_tpu_torch import build
+    from hbbft_tpu_torch.crypto.bls.suite import BLSSuite
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+    from hbbft_tpu_torch.crypto.device.backend import TorchBackend
+    from hbbft_tpu_torch.cryptoplane.service import DeviceFlushError
+    from hbbft_tpu_torch.utils import serde
+
+    be = TorchBackend(BLSSuite(), device="cuda")
+    be.load_kernels()
+    inner = be.verify_batch
+    per_flush = []
+
+    def counted(reqs):
+        before = dict(build.LAUNCHES)
+        out = inner(reqs)
+        per_flush.append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                          for k in (*dscan.KERNELS, *dpair.KERNELS)})
+        return out
+
+    be.verify_batch = counted
+    nat = _ext_net(be)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    batches = _first_epoch(nat)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    faults = {i: nat.faults(i) for i in range(4) if nat.faults(i)}
+    nat.close()
+
+    failing = TorchBackend(BLSSuite(), device="cuda")
+    calls = []
+    ok_flush = failing.verify_batch
+
+    def fail_second(reqs):
+        calls.append(len(reqs))
+        if len(calls) == 2:
+            raise DeviceFlushError("flush 2 failed on the device")
+        return ok_flush(reqs)
+
+    failing.verify_batch = fail_second
+    abort = {"raised": None}
+    nat_a = _ext_net(failing)
+    try:
+        _first_epoch(nat_a)
+    except DeviceFlushError as exc:
+        abort["raised"] = str(exc)
+    abort["flushes"] = len(calls)
+    abort["faults"] = sum(len(nat_a.faults(i)) for i in range(4))
+    abort["later_calls_raise"] = []
+    for call in (nat_a.run, nat_a.flush):
+        try:
+            call()
+        except RuntimeError as exc:
+            abort["later_calls_raise"].append("stopped at a failed verify flush" in str(exc))
+        else:
+            abort["later_calls_raise"].append(False)
+    nat_a.close()
+    return {"batches": serde.dumps(batches).hex(), "per_flush": per_flush, "launches": launches,
+            "faults": faults, "run_s": run_s, "abort": abort, "engine": nat.lib._name}
+
+
+def sanitized_engine_child(sanitizer: str, out_path: str) -> int:
+    """Phase 9 (a)'s child: :func:`_card_epoch` on the ``sanitizer``
+    engine (``native_engine.use_engine_build``), its result written to
+    ``out_path`` as JSON."""
+    from hbbft_tpu_torch import native_engine
+
+    native_engine.use_engine_build(sanitizer)
+    result = _card_epoch()
+    with open(out_path, "w") as fh:
+        json.dump(result, fh)
+    return 0
+
+
+def _check_card_epoch(got: dict, want_batches: str, what: str) -> None:
+    """Phase 9 (a)'s checks of one :func:`_card_epoch` result."""
+    from hbbft_tpu_torch.crypto.device import pair as dpair
+    from hbbft_tpu_torch.crypto.device import scan as dscan
+
+    if got["batches"] != want_batches:
+        raise AssertionError(f"{what}: the committed batches differ from the normal engine's")
+    if got["faults"]:
+        raise AssertionError(f"{what}: faults recorded: {got['faults']}")
+    bare = [k for k, f in enumerate(got["per_flush"])
+            if sum(f[n] for n in dscan.KERNELS) < 1 or sum(f[n] for n in dpair.KERNELS) < 1]
+    if not got["per_flush"] or bare:
+        raise AssertionError(f"{what}: flushes {bare} launched no scan or no pair kernel "
+                             f"({len(got['per_flush'])} flushes)")
+    unused = [n for n in (*dscan.KERNELS, *dpair.KERNELS) if not got["launches"].get(n)]
+    if unused:
+        raise AssertionError(f"{what}: {unused} never launched")
+    ab = got["abort"]
+    if not (ab["raised"] and "flush 2 failed" in ab["raised"] and ab["flushes"] == 2
+            and ab["faults"] == 0 and ab["later_calls_raise"] == [True, True]):
+        raise AssertionError(f"{what}: the abort leg failed: {ab}")
+
+
+def phase_sanitized(card: str, builds) -> dict:
+    """Phase 9 (a): the UBSan and the ASan engine, each in a child process
+    with its runtime preloaded, commit the same batches over the card as
+    the normal engine in this process, K2 and K3 launched on every flush,
+    and stop at a failed device flush (module docstring).  ``builds`` is
+    the future of :func:`build_sanitized_engines`.  Returns the children's
+    launches, each child's counts set to 0 just before its run."""
+    from hbbft_tpu_torch import build
+
+    build_s = builds.result()
+    log(f"sanitized engines {SANITIZED_BUILDS} (width 4) built in {build_s:.1f} s beside "
+        f"phases 1-8")
+    t0 = time.perf_counter()
+    want = _card_epoch()
+    _check_card_epoch(want, want["batches"], "sanitized-4 (normal engine)")
+    log(f"sanitized-4 normal engine: one BLS epoch at N = 4 in {want['run_s']:.3f} s, "
+        f"{len(want['per_flush'])} TorchBackend flushes; abort leg at flush 2 ok; "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    launches: dict = {}
+    for sanitizer in SANITIZED_BUILDS:
+        t0 = time.perf_counter()
+        out_path = os.path.join(build.BUILD_DIR, f"phase9-{sanitizer}-{os.getpid()}.json")
+        env = dict(os.environ, LD_PRELOAD=build.sanitizer_runtime(sanitizer),
+                   **SANITIZED_ENV[sanitizer])
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--sanitized-engine",
+                              sanitizer, out_path], env=env, capture_output=True, text=True,
+                             timeout=SANITIZED_CHILD_S)
+        child_s = time.perf_counter() - t0
+        report = SANITIZER_REPORT[sanitizer]
+        if res.returncode != 0 or report in res.stderr:
+            raise AssertionError(f"sanitized-4 {sanitizer}: rc {res.returncode}\n"
+                                 f"{res.stderr[-6000:]}")
+        with open(out_path) as fh:
+            got = json.load(fh)
+        os.unlink(out_path)
+        what = f"sanitized-4 {sanitizer}"
+        if f"_w4_{sanitizer}-" not in got["engine"]:
+            raise AssertionError(f"{what}: the child loaded {got['engine']}")
+        _check_card_epoch(got, want["batches"], what)
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        options = " ".join(f"{k}={v}" for k, v in SANITIZED_ENV[sanitizer].items())
+        log(f"{what}: {os.path.basename(got['engine'])}, LD_PRELOAD "
+            f"{os.path.basename(env['LD_PRELOAD'])} {options}: the normal "
+            f"engine's batches, {len(got['per_flush'])} flushes each launching K2 and K3, epoch "
+            f"{got['run_s']:.3f} s; abort leg ok; rc 0, no report; child {child_s:.1f} s  [{card}]")
+    log(f"sanitized-4 launches: {json.dumps(launches, sort_keys=True)}")
+    return launches
+
+
 def _requests() -> tuple:
     """The flush's workloads, built on the host: the suite, firehose-10240
     and mixed-512 with its bad indices."""
@@ -2461,13 +2676,16 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        # The host C++ (g++) beside the kernels' nvcc processes: its own lock.
-        host = pool.submit(lambda: [build.build_host("engine", 4), build.build_host("native"),
-                                    time.perf_counter() - t0][-1])
-        build.build_all(["keccak", "fq", "scan", "pair"], verbose=True)
-        log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-        log(f"host C++ (engine, data plane) built in {host.result():.1f} s")
+    pool = ThreadPoolExecutor(1)
+    # The host C++ (g++) beside the kernels' nvcc processes: its own lock.
+    # Phase 9's sanitized engines build after it, beside phases 1-8.
+    host = pool.submit(lambda: [build.build_host("engine", 4), build.build_host("native"),
+                                time.perf_counter() - t0][-1])
+    sanitized = pool.submit(build_sanitized_engines)
+    pool.shutdown(wait=False)
+    build.build_all(["keccak", "fq", "scan", "pair"], verbose=True)
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"host C++ (engine, data plane) built in {host.result():.1f} s")
     # Phase 7 from here on, beside phases 1-6.  Each main path's launches,
     # its counts set to 0 just before it; a kernel's "launches" is their sum.
     traffic = start_phase_traffic(card)
@@ -2483,6 +2701,9 @@ def main() -> int:
         t0 = time.perf_counter()
         paths["native"] = phase_native(card)
         log(f"phase 8 {time.perf_counter() - t0:.1f} s  [{card}]")
+        t0 = time.perf_counter()
+        paths["sanitized"] = phase_sanitized(card, sanitized)
+        log(f"phase 9 {time.perf_counter() - t0:.1f} s  [{card}]")
         paths["traffic"] = phase_traffic(card, traffic, t_start + TRAFFIC_DEADLINE_S)
     finally:
         stop_phase_traffic(traffic)
@@ -2501,4 +2722,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sanitized-engine"]:
+        sys.exit(sanitized_engine_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -15,7 +15,10 @@ The host C++ of ``csrc/native/`` (the protocol engine and the host data
 plane) is built here too, with ``g++`` (:func:`build_host`): one engine
 library per NodeSet width (``-DHBE_WORDS=w``), ``field_ifma.cpp`` alone
 compiled with ``-mavx512ifma`` where the compiler takes it, each output
-named by the hash of its sources and flags, at first use.
+named by the hash of its sources and flags, at first use.  The sanitizer
+tier builds the engine under ASan, UBSan or TSan (``sanitizer=`` of
+:func:`build_host`) with the reference's ``native/Makefile`` flags;
+``native_engine.use_engine_build`` loads such a build.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
@@ -162,6 +165,20 @@ def _compile(paths: Dict[str, Path], extra: List[str], verbose: bool) -> None:
 NATIVE = CSRC / "native"
 GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
 IFMA_FLAGS = ("-mavx512ifma",)
+# The sanitizer builds' flags (native/Makefile SAN_FLAGS): -O1 keeps
+# stacks honest, frame pointers keep reports readable.  field_ifma.cpp is
+# compiled under the same sanitizer as the engine it is linked into.
+SAN_FLAGS = ["-O1", "-g", "-fno-omit-frame-pointer", "-fPIC", "-std=c++17"]
+SANITIZERS = {
+    "address": ["-fsanitize=address"],
+    "undefined": ["-fsanitize=undefined", "-fno-sanitize-recover=all"],
+    "thread": ["-fsanitize=thread"],
+}
+# Each sanitizer's runtime, which an uninstrumented python must
+# LD_PRELOAD before it loads such an engine (UBSan's loads as a
+# dependency too; the tier preloads it all the same).
+SANITIZER_RUNTIMES = {"address": "libasan.so", "undefined": "libubsan.so",
+                      "thread": "libtsan.so"}
 
 
 def gxx_path() -> str:
@@ -184,47 +201,70 @@ def _gxx_takes(flags: tuple) -> bool:
         return False
 
 
-def _host_steps(name: str, words: int) -> List[List[str]]:
+def _host_steps(name: str, words: int, sanitizer: Optional[str] = None) -> List[List[str]]:
     """The compile steps of library ``name`` (``"engine"`` or
     ``"native"``), each a g++ argument list without its output path;
-    the last links the shared library."""
+    the last links the shared library.  ``sanitizer`` (a key of
+    :data:`SANITIZERS`, engine only) builds it instrumented."""
+    if sanitizer is not None and name != "engine":
+        raise ValueError(f"only the engine has sanitized builds, not {name!r}")
     if name == "native":
         return [[*GXX_FLAGS, "-shared", "-pthread", str(NATIVE / "hbbft_native.cpp")]]
     if name != "engine":
         raise ValueError(f"no host library {name!r}")
+    if sanitizer is None:
+        flags = GXX_FLAGS
+    elif sanitizer in SANITIZERS:
+        flags = [*SAN_FLAGS, *SANITIZERS[sanitizer]]
+    else:
+        raise ValueError(f"no sanitizer {sanitizer!r}; one of {sorted(SANITIZERS)}")
     ifma = list(IFMA_FLAGS) if _gxx_takes(IFMA_FLAGS) else []
     return [
-        [*GXX_FLAGS, "-c", *ifma, str(NATIVE / "field_ifma.cpp")],
-        [*GXX_FLAGS, "-shared", "-pthread", f"-DHBE_WORDS={words}",
-         str(NATIVE / "engine.cpp")],
+        [*flags, "-c", *ifma, str(NATIVE / "field_ifma.cpp")],
+        [*flags, "-shared", "-pthread", f"-DHBE_WORDS={words}", str(NATIVE / "engine.cpp")],
     ]
 
 
-def host_library_path(name: str, words: int = 4) -> Path:
+def host_library_path(name: str, words: int = 4, sanitizer: Optional[str] = None) -> Path:
     """Where :func:`build_host` puts library ``name``: the hash covers
     every source and header it compiles and every flag."""
-    steps = _host_steps(name, words)
+    steps = _host_steps(name, words, sanitizer)
     h = hashlib.sha256(repr(steps).encode())
     mains = ["hbbft_native.cpp"] if name == "native" else ["field_ifma.cpp", "engine.cpp"]
     for main in mains:
         for path in _with_includes(NATIVE / main):
             h.update(path.name.encode() + b"\0" + path.read_bytes())
     tag = f"engine_w{words}" if name == "engine" else "native"
+    if sanitizer is not None:
+        tag += f"_{sanitizer}"
     return BUILD_DIR / f"libhbbft_{tag}-{h.hexdigest()[:16]}.so"
 
 
-def build_host(name: str, words: int = 4, timeout: float = 600.0) -> Path:
+def sanitizer_runtime(sanitizer: str) -> str:
+    """The full path of ``sanitizer``'s runtime as g++ links it (what
+    ``LD_PRELOAD`` names).  Raises if g++ has none."""
+    name = SANITIZER_RUNTIMES[sanitizer]
+    out = subprocess.run([gxx_path(), f"-print-file-name={name}"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    if not os.path.isabs(out) or not os.path.exists(out):
+        raise RuntimeError(f"g++ has no {name}: the {sanitizer} sanitizer's runtime is not installed")
+    return out
+
+
+def build_host(name: str, words: int = 4, timeout: float = 600.0,
+               sanitizer: Optional[str] = None) -> Path:
     """Build host library ``name`` from ``csrc/native/`` unless it is
-    built already, and return its path.  Raises ``RuntimeError`` with the
-    compiler's output when a step fails."""
+    built already, and return its path; ``sanitizer`` as in
+    :func:`_host_steps`.  Raises ``RuntimeError`` with the compiler's
+    output when a step fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = host_library_path(name, words)
+    so = host_library_path(name, words, sanitizer)
     if so.exists():
         return so
     with _build_lock(".host.lock"):
         if so.exists():
             return so
-        steps = _host_steps(name, words)
+        steps = _host_steps(name, words, sanitizer)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         objs: List[str] = []
         for i, step in enumerate(steps):

@@ -11,8 +11,9 @@
 //      and hbe_flush return (Engine::aborted, hbe_abort, and the checks
 //      in engine_flush_ext, engine_flush_ext_node, engine_run and
 //      hbe_flush).  Every line this adds carries the tag [port].
-//   4. The comment above hbe_words no longer names the reference's
-//      pre-built library override, which the port does not have.
+//   4. The comment above hbe_words names the port's sanitizer override,
+//      native_engine.use_engine_build, in place of the reference's
+//      pre-built library variable.
 // ---- end of the port's header ----
 // Native protocol-plane engine: the HoneyBadger message loop in C++.
 //
@@ -5868,7 +5869,10 @@ void hbe_dkg_row_evals(const uint8_t* coeffs_be, int32_t n_coeffs,
   }
 }
 
-// This build's NodeSet width.
+// This build's NodeSet width (for the sanitized builds that
+// native_engine.use_engine_build selects: the loader verifies the library
+// has the width the network needs instead of letting hbe_create fail
+// opaquely).
 int32_t hbe_words() { return HBE_WORDS; }
 
 // --- SIMD field-plane dispatch + kernel test surface (round 15) ------------

@@ -60,7 +60,12 @@ reference's, its edits listed at its top), built by
   is recorded, and the original error (``DeviceFlushError`` or the
   kernel's own) reaches the caller of ``run``, ``run_until``, ``flush``
   or ``send_input``.  The engine stays stopped; later calls raise.
-* The sanitizer tier's library override is not ported.
+* **The sanitizer tier's override** is a function, not an environment
+  variable: :func:`use_engine_build` selects an ASan, UBSan or TSan
+  build of the engine before the first net is made, and every width is
+  then built and loaded under that sanitizer (the reference loads one
+  pre-built library, named by an environment variable, whatever width
+  a net asks for).
 """
 
 from __future__ import annotations
@@ -149,9 +154,66 @@ _TAMPER_CB = ctypes.CFUNCTYPE(
 )
 
 
+# The engine build every later load takes: None for the normal build, or
+# a sanitizer of build.SANITIZERS (use_engine_build).
+_ENGINE_BUILD: Optional[str] = None
+# A symbol each sanitizer's runtime defines: present in the process's
+# global namespace only when the runtime was LD_PRELOADed (an ASan or
+# TSan runtime that a dlopen pulls in later kills the process instead).
+_RUNTIME_SYMBOL = {"address": "__asan_init", "thread": "__tsan_init"}
+
+
+def use_engine_build(sanitizer: Optional[str]) -> None:
+    """Select the engine build that nets made from now on load:
+    ``"address"``, ``"undefined"`` or ``"thread"`` for the sanitizer tier
+    (the engine compiled ``-O1 -g`` under that sanitizer, built at first
+    use at the NodeSet width each net needs), or None for the normal
+    build.  Call it before the first engine is loaded.  The python that
+    loads an ASan or TSan build must have the sanitizer's runtime
+    ``LD_PRELOAD``ed (``build.sanitizer_runtime``); a sanitized build
+    that cannot be built or loaded raises ``RuntimeError`` from the net's
+    constructor and never reads as "unavailable"."""
+    global _ENGINE_BUILD
+    from hbbft_tpu_torch import build
+
+    if sanitizer is not None and sanitizer not in build.SANITIZERS:
+        raise ValueError(f"no sanitizer {sanitizer!r}; one of {sorted(build.SANITIZERS)}")
+    if _LIBS and sanitizer != _ENGINE_BUILD:
+        raise RuntimeError("an engine is loaded already: select its build before the first net")
+    _ENGINE_BUILD = sanitizer
+
+
+def _open_sanitized(words: int, sanitizer: str) -> ctypes.CDLL:
+    """Build and load the ``sanitizer`` engine of width ``words``."""
+    from hbbft_tpu_torch import build
+
+    runtime = build.SANITIZER_RUNTIMES[sanitizer]
+    symbol = _RUNTIME_SYMBOL.get(sanitizer)
+    if symbol is not None and not hasattr(ctypes.CDLL(None), symbol):
+        raise RuntimeError(
+            f"the {sanitizer} engine build needs its runtime first in the process: "
+            f"LD_PRELOAD={runtime} (build.sanitizer_runtime({sanitizer!r}))"
+        )
+    path = build.build_host("engine", words, sanitizer=sanitizer)
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as exc:
+        raise RuntimeError(
+            f"the {sanitizer} engine build {path.name} failed to load; its runtime "
+            f"{runtime} must be LD_PRELOADed"
+        ) from exc
+    lib.hbe_words.restype = ctypes.c_int32
+    lib.hbe_words.argtypes = []
+    if lib.hbe_words() != words:
+        raise RuntimeError(f"{path.name} was built with -DHBE_WORDS={lib.hbe_words()}, "
+                           f"not {words}")
+    return lib
+
+
 def _load(words: int) -> ctypes.CDLL:
     """Build (at first use) and load the engine of NodeSet width
-    ``words``; raises ``RuntimeError`` when it cannot be built."""
+    ``words`` of the build :func:`use_engine_build` selected; raises
+    ``RuntimeError`` when it cannot be built."""
     from hbbft_tpu_torch import build
 
     # The vectorized field plane: field_ifma.cpp is the only unit
@@ -159,7 +221,10 @@ def _load(words: int) -> ctypes.CDLL:
     # stub arm compiles instead, and the runtime dispatch keeps scalar);
     # field_plane.h / sha3_plane.h are header deps of engine.cpp, so
     # edits rebuild every width (build.host_library_path hashes them).
-    lib = ctypes.CDLL(str(build.build_host("engine", words)))
+    if _ENGINE_BUILD is None:
+        lib = ctypes.CDLL(str(build.build_host("engine", words)))
+    else:
+        lib = _open_sanitized(words, _ENGINE_BUILD)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
     lib.hbe_create.restype = ctypes.c_void_p
@@ -401,11 +466,14 @@ _LOAD_ERRORS: Dict[int, BaseException] = {}
 def get_lib(words: int = 4) -> Optional[ctypes.CDLL]:
     """The engine of NodeSet width ``words``, or None when it cannot be
     built (the host fast paths of keys, SyncKeyGen and serde then take
-    their pure-Python paths; the engine-backed nets raise)."""
+    their pure-Python paths; the engine-backed nets raise).  A sanitized
+    build (:func:`use_engine_build`) that fails raises instead."""
     if words not in _LIBS:
         try:
             _LIBS[words] = _load(words)
         except (RuntimeError, OSError) as exc:
+            if _ENGINE_BUILD is not None:
+                raise
             _LIBS[words] = None
             _LOAD_ERRORS[words] = exc
         else:

@@ -35,14 +35,16 @@ from __future__ import annotations
 
 from collections import Counter
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
-from hbbft_tpu_torch.device import DeviceLike, resolve
 from hbbft_tpu_torch.obs import trace as _trace
 from hbbft_tpu_torch.ops.gf256 import rs_codec
 from hbbft_tpu_torch.ops.merkle import MerkleTree, Proof
 from hbbft_tpu_torch.protocols.network_info import NetworkInfo
 from hbbft_tpu_torch.protocols.traits import ConsensusProtocol, Step, Target
+
+if TYPE_CHECKING:  # the device module loads torch: batch_propose imports it
+    from hbbft_tpu_torch.device import DeviceLike
 
 FAULT_INVALID_PROOF = "broadcast:invalid-proof"
 FAULT_WRONG_INDEX = "broadcast:wrong-shard-index"
@@ -381,6 +383,8 @@ def batch_propose(broadcasts, values, device: DeviceLike = None):
     independent O(|v|) data-plane jobs into one device batch.
     """
     from collections import defaultdict
+
+    from hbbft_tpu_torch.device import resolve
 
     assert len(broadcasts) == len(values)
     dev = resolve(device)

@@ -347,3 +347,43 @@ def test_native_engine_over_bls_refuses_without_a_card():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert "REFUSED 1" in res.stdout, res.stdout
+
+
+HOST_ONLY = [
+    "hbbft_tpu_torch.native_engine", "hbbft_tpu_torch.transport.cluster_worker",
+    "hbbft_tpu_torch.transport.native_node", "hbbft_tpu_torch.transport.cluster",
+    "hbbft_tpu_torch.chaos.strategies", "hbbft_tpu_torch.obs.analyze",
+    "hbbft_tpu_torch.obs.server", "hbbft_tpu_torch.tools.analyze",
+]
+
+
+def test_host_only_modules_load_no_torch():
+    """The modules a process-per-node worker, a sanitized interpreter or
+    the trace-analysis CLI import load no ``torch`` (``protocols.broadcast``
+    imports the device module only inside ``batch_propose``), and
+    ``batch_propose`` still refuses to run with no card unless it is
+    given ``device="cpu"``."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {HOST_ONLY!r}:\n"
+        "    importlib.import_module(m)\n"
+        "    if 'torch' in sys.modules:\n"
+        "        print('TORCH BY', m)\n"
+        "        break\n"
+        "else:\n"
+        "    print('NO TORCH')\n"
+        "from hbbft_tpu_torch.net import NetBuilder\n"
+        "from hbbft_tpu_torch.protocols.broadcast import Broadcast, batch_propose\n"
+        "bcs = [NetBuilder(4).protocol(lambda ni, sink, rng: Broadcast(ni, 0)).build()\n"
+        "       .node(0).protocol for _ in range(2)]\n"
+        "assert 'torch' not in sys.modules\n"
+        "try:\n"
+        "    batch_propose(bcs, [b'x', b'y'])\n"
+        "except RuntimeError:\n"
+        "    print('REFUSED')\n"
+        "steps = batch_propose(bcs, [b'x', b'y'], device='cpu')\n"
+        "print('CPU', len(steps))\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["NO", "TORCH", "REFUSED", "CPU", "2"], res.stdout

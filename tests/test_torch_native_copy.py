@@ -6,7 +6,7 @@ held to its original, and the port's module list to the reference's.
   prefix, the work-item tags taken out of comments, and (engine.cpp
   only) the lines tagged ``[port]`` that stop the engine at a failed
   verify flush, each of them added, and the comment above ``hbe_words``
-  cut to its first words.
+  naming the port's sanitizer override in place of the reference's.
 * The copy's serde scan limits equal the port's ``utils/serde.py``
   ``MAX_DEPTH``/``_MAX_LEN``, and the wire tags the copy encodes and
   decodes are those the port's ``wire.py`` registers (the checks
@@ -36,13 +36,16 @@ HEADER_END = "// ---- end of the port's header ----\n"
 OLD_PREFIX = "HBBFT_" + "TPU_"
 
 
-# Edit 4 of engine.cpp's header: the comment above hbe_words without the
-# reference's pre-built library override.
+# Edit 4 of engine.cpp's header: the comment above hbe_words names the
+# port's sanitizer override in place of the reference's library variable.
 WORDS_COMMENT = (
     "// This build's NodeSet width (for HBBFT_TORCH_ENGINE_LIB overrides: the\n"
     "// loader verifies a pre-built library is wide enough for the requested\n"
     "// network instead of letting hbe_create fail opaquely).\n",
-    "// This build's NodeSet width.\n",
+    "// This build's NodeSet width (for the sanitized builds that\n"
+    "// native_engine.use_engine_build selects: the loader verifies the library\n"
+    "// has the width the network needs instead of letting hbe_create fail\n"
+    "// opaquely).\n",
 )
 
 
@@ -92,7 +95,7 @@ def test_copy_equals_original_but_for_its_listed_edits(name):
         added += got[j1:j2]
     if name == "engine.cpp":
         assert "  3. A device flush that fails stops the run" in header
-        assert "  4. The comment above hbe_words no longer names" in header
+        assert "  4. The comment above hbe_words names the port's sanitizer override" in header
         assert added and all("[port]" in line for line in added), added
         assert any("void hbe_abort(void* h)" in line for line in added)
     else:
